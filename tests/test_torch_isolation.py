@@ -1,0 +1,72 @@
+"""The port stands alone: tpumr_torch and chip_smoke.py import neither JAX
+nor anything of the JAX package (tpumr), and chip_smoke.py refuses to run
+without a card.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import tpumr_torch
+names = [m.name for m in pkgutil.walk_packages(tpumr_torch.__path__,
+                                               "tpumr_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "forbidden": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib") or m == "tpumr"
+    or m.startswith("tpumr."))}))
+"""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib") or top == "tpumr"
+
+
+def test_importing_every_module_loads_no_jax_and_no_tpumr():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "tpumr_torch.mapred.local_runner" in report["imported"]
+    assert "tpumr_torch.ops.kmeans" in report["imported"]
+    assert report["forbidden"] == []
+
+
+def test_no_source_names_jax_or_tpumr_in_an_import():
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _dirs, files in os.walk(os.path.join(REPO, "tpumr_torch")):
+        sources += [os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py")]
+    assert len(sources) > 20
+    bad = []
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path}:{node.lineno} {n}" for n in names
+                    if _forbidden(n)]
+    assert bad == []
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No CUDA device: a non-zero exit and no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

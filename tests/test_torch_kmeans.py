@@ -1,0 +1,179 @@
+"""The port's K-Means kernel module (tpumr_torch/ops/kmeans.py) against the
+JAX package's (tpumr/ops/kmeans.py), on the CPU.
+
+On the CPU the kernel wrapper runs its plain torch version; the CUDA kernel
+itself is held against that plain version on the card by chip_smoke.py.
+Inputs come from numpy seeds and go to both packages as numpy arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpumr.io.recordbatch import DenseBatch as JaxDenseBatch
+from tpumr.mapred.jobconf import JobConf as JaxJobConf
+from tpumr.ops import get_kernel as jax_get_kernel
+from tpumr.ops.kmeans import assign_and_partials as jax_assign_and_partials
+from tpumr.ops.kmeans import clear_centroid_cache as jax_clear_centroids
+from tpumr.ops.kmeans import pallas_assign
+from tpumr_torch.io.recordbatch import DenseBatch
+from tpumr_torch.mapred.jobconf import JobConf
+from tpumr_torch.ops import get_kernel
+from tpumr_torch.ops import kmeans as tk
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+@pytest.mark.parametrize("n,d,k,block_n,seed", [(100, 3, 5, 32, 1),
+                                                (257, 5, 7, 2048, 0)])
+def test_assign_plain_matches_pallas_interpret(n, d, k, block_n, seed):
+    """Mirrors tests/test_ops.py:42-48: tpumr.ops.kmeans.pallas_assign in
+    interpret mode, ids exactly equal."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, d)).astype(np.float32)
+    cents = rng.normal(size=(k, d)).astype(np.float32)
+    want = np.asarray(pallas_assign(pts, cents, block_n=block_n,
+                                    interpret=True))
+    got = tk.assign_plain(_t(pts), _t(cents))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the wrapper takes the plain version for a CPU tensor and launches
+    # nothing
+    launches = tk.kmeans_assign.launches
+    np.testing.assert_array_equal(tk.assign(_t(pts), _t(cents)).numpy(), want)
+    assert tk.kmeans_assign.launches == launches
+
+
+def test_assign_and_partials_matches_jax():
+    """Mirrors tests/test_ops.py:27-40 against
+    tpumr.ops.kmeans.assign_and_partials(use_pallas=False): ids and counts
+    equal, sums to rtol 1e-4 (f32 sums taken in another order)."""
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(257, 5)).astype(np.float32)
+    cents = rng.normal(size=(7, 5)).astype(np.float32)
+    ja, js, jc = (np.asarray(x) for x in
+                  jax_assign_and_partials(pts, cents, use_pallas=False))
+    a, s, c = tk.assign_and_partials(_t(pts), _t(cents))
+    np.testing.assert_array_equal(a.numpy(), ja)
+    np.testing.assert_array_equal(c.numpy(), jc)
+    assert c.dtype == torch.int32 and int(c.sum()) == 257
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-4, atol=1e-6)
+
+
+def test_counts_exact_past_the_f32_integer_range():
+    """A split of more than 2**24 points: every count stays exact (an f32
+    sum of ones stops growing at 2**24)."""
+    n = 2 ** 24 + 3
+    pts = torch.zeros(n, 1)
+    pts[-1] = 1.0
+    _a, sums, counts = tk.assign_and_partials(pts, torch.tensor([[0.], [1.]]))
+    assert counts.tolist() == [n - 1, 1]
+    assert sums.flatten().tolist() == [0.0, 1.0]
+
+
+def test_ties_go_to_the_lower_index():
+    """Exact ties (integer coordinates, so every distance is exact in f32):
+    a duplicated centroid, and points halfway between two centroids. The
+    JAX package (XLA path and Pallas interpret) and the port both pick the
+    lower index."""
+    cents = np.array([[0, 0], [2, 0], [0, 0], [0, 4]], np.float32)
+    pts = np.array([[0, 0], [1, 0], [0, 2], [1, 1], [-1, 0], [0, 3]],
+                   np.float32)
+    want = np.array([0, 0, 0, 0, 0, 3])
+    jax_xla = np.asarray(jax_assign_and_partials(pts, cents)[0])
+    jax_pallas = np.asarray(pallas_assign(pts, cents, interpret=True))
+    port = tk.assign_and_partials(_t(pts), _t(cents))[0].numpy()
+    for got in (jax_xla, jax_pallas, port):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    pts, cents = torch.zeros(4, 3), torch.zeros(2, 3)
+    with pytest.raises(TypeError):
+        tk.kmeans_assign(pts.double(), cents)
+    with pytest.raises(ValueError):
+        tk.kmeans_assign(pts, torch.zeros(2, 4))
+    with pytest.raises(ValueError):
+        tk.kmeans_assign(pts.T, torch.zeros(2, 4))       # not contiguous
+    with pytest.raises(ValueError):
+        tk.kmeans_assign(pts.to("meta"), cents.to("meta"))
+
+
+def _centroid_conf(conf, tmp_path, cents):
+    path = tmp_path / "cents.npy"
+    np.save(path, cents)
+    conf.set("tpumr.kmeans.centroids", f"file://{path}")
+    return conf
+
+
+def test_kernel_mapper_partials_match_jax(tmp_path):
+    """Mirrors tests/test_ops.py:51-70: the kmeans-assign kernel mapper's
+    map_batch (launch, one copy to the host, drain) gives the JAX kernel
+    mapper's records: same clusters and counts, sums to rtol 1e-4. The
+    CPU-slot twin map_batch_cpu is the same numpy code in both packages,
+    so its records are equal."""
+    jax_clear_centroids()
+    tk.clear_centroid_cache()
+    rng = np.random.default_rng(2)
+    pts = rng.normal(size=(64, 4)).astype(np.float32)
+    cents = rng.normal(size=(3, 4)).astype(np.float32)
+    jconf = _centroid_conf(JaxJobConf(), tmp_path, cents)
+    conf = _centroid_conf(JobConf(), tmp_path, cents)
+    jkernel, kernel = jax_get_kernel("kmeans-assign"), get_kernel(
+        "kmeans-assign")
+    want = dict(jkernel.map_batch(JaxDenseBatch(pts, np.arange(64)), jconf,
+                                  None))
+    got = dict(kernel.map_batch(DenseBatch(_t(pts), np.arange(64)), conf,
+                                None))
+    assert sorted(got) == sorted(want)
+    assert sum(n for _s, n in got.values()) == 64
+    for cid, (s, n) in got.items():
+        assert n == want[cid][1]
+        np.testing.assert_allclose(s, want[cid][0], rtol=1e-4, atol=1e-6)
+
+    want_cpu = dict(jkernel.map_batch_cpu(JaxDenseBatch(pts), jconf, None))
+    got_cpu = dict(kernel.map_batch_cpu(DenseBatch(pts), conf, None))
+    assert sorted(got_cpu) == sorted(want_cpu)
+    for cid, (s, n) in got_cpu.items():
+        np.testing.assert_array_equal(s, want_cpu[cid][0])
+        assert n == want_cpu[cid][1]
+
+
+def test_cpu_mapper_matches_jax(tmp_path):
+    """The per-record CPU mapper (tpumr.ops.kmeans.KMeansCpuMapper) emits
+    the same (cluster, (row, 1)) records."""
+    from tpumr.mapred.api import OutputCollector as JaxCollector
+    from tpumr.ops.kmeans import KMeansCpuMapper as JaxCpuMapper
+    from tpumr_torch.mapred.api import OutputCollector
+
+    jax_clear_centroids()
+    tk.clear_centroid_cache()
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(20, 3)).astype(np.float32)
+    cents = rng.normal(size=(4, 3)).astype(np.float32)
+    want, got = [], []
+    jm, m = JaxCpuMapper(), tk.KMeansCpuMapper()
+    jm.configure(_centroid_conf(JaxJobConf(), tmp_path, cents))
+    m.configure(_centroid_conf(JobConf(), tmp_path, cents))
+    for i, row in enumerate(pts):
+        jm.map(i, row, JaxCollector(lambda k, v: want.append((k, v))), None)
+        m.map(i, row, OutputCollector(lambda k, v: got.append((k, v))), None)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, (row, one)), (_, (jrow, jone)) in zip(got, want):
+        np.testing.assert_array_equal(row, jrow)
+        assert one == jone == 1
+
+
+def test_centroids_from_numpy_takes_read_only_state():
+    """The JAX package's centroids as a read-only numpy view (how its input
+    format hands arrays over) become an owned, contiguous f32 tensor."""
+    cents = np.arange(12, dtype=np.float64).reshape(3, 4)
+    view = np.frombuffer(cents.tobytes(), dtype=np.float64).reshape(3, 4)
+    t = tk.centroids_from_numpy(view, "cpu")
+    assert t.dtype == torch.float32 and t.is_contiguous()
+    assert t.device.type == "cpu"
+    np.testing.assert_array_equal(t.numpy(), cents.astype(np.float32))
+    t += 1   # writable: owns its memory
+    np.testing.assert_array_equal(view, cents)

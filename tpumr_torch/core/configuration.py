@@ -1,0 +1,91 @@
+"""Key/value configuration with typed getters.
+
+Counterpart of ``tpumr/core/configuration.py``, trimmed to what the K-Means
+job path uses: a defaults layer under explicit ``set()`` values, the typed
+getters, and class-valued keys. The key strings are the JAX package's, so a
+job configuration written for it reads the same here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+from tpumr_torch.utils.reflection import class_name, resolve_class
+
+_TRUE = {"true", "yes", "on", "1"}
+_FALSE = {"false", "no", "off", "0"}
+
+
+class Configuration:
+    """Explicit values over a defaults layer, parsed on read."""
+
+    def __init__(self, other: "Configuration | None" = None,
+                 defaults: "Mapping[str, Any] | None" = None) -> None:
+        self._defaults: dict[str, Any] = dict(defaults or {})
+        self._values: dict[str, Any] = {}
+        if other is not None:
+            self._defaults.update(other._defaults)
+            self._values = dict(other._values)
+
+    def get(self, key: str, default: Any = None) -> Any:
+        if key in self._values:
+            return self._values[key]
+        return self._defaults.get(key, default)
+
+    def set(self, key: str, value: Any) -> None:
+        self._values[key] = value
+
+    def get_int(self, key: str, default: int = 0) -> int:
+        v = self.get(key)
+        if v is None:
+            return default
+        if isinstance(v, str):
+            s = v.strip()
+            # decimal by default (leading zeros OK); 0x/0o/0b prefixes honored
+            return int(s, 0) if s[1:2] in ("x", "o", "b") and s[:1] == "0" \
+                else int(s, 10)
+        return int(v)
+
+    def get_float(self, key: str, default: float = 0.0) -> float:
+        v = self.get(key)
+        return default if v is None else float(v)
+
+    def get_boolean(self, key: str, default: bool = False) -> bool:
+        v = self.get(key)
+        if v is None:
+            return default
+        if isinstance(v, bool):
+            return v
+        s = str(v).strip().lower()
+        if s in _TRUE:
+            return True
+        if s in _FALSE:
+            return False
+        return default
+
+    def get_strings(self, key: str) -> list[str]:
+        v = self.get(key)
+        if v is None:
+            return []
+        if isinstance(v, (list, tuple)):
+            return [str(x) for x in v]
+        return [s.strip() for s in str(v).split(",") if s.strip()]
+
+    def get_class(self, key: str, default: "type | None" = None
+                  ) -> "type | None":
+        v = self.get(key)
+        if v is None:
+            return default
+        if isinstance(v, type):
+            return v
+        return resolve_class(str(v))
+
+    def set_class(self, key: str, cls: type) -> None:
+        """The dotted name when it resolves back to ``cls``, else the
+        class object itself (in-process jobs only)."""
+        name = class_name(cls)
+        try:
+            importable = resolve_class(name) is cls
+        except (ImportError, TypeError):
+            importable = False
+        self.set(key, name if importable else cls)

@@ -1,0 +1,61 @@
+"""Job counters: named groups of named integer counters.
+
+Counterpart of ``tpumr/core/counters.py``. The group and counter name
+strings are the JAX package's, so the counters of a job run through either
+package compare key by key. "TPU" in a name means "accelerator slot".
+"""
+
+from __future__ import annotations
+
+import threading
+
+
+class TaskCounter:
+    MAP_INPUT_RECORDS = "MAP_INPUT_RECORDS"
+    MAP_OUTPUT_RECORDS = "MAP_OUTPUT_RECORDS"
+    MAP_OUTPUT_BYTES = "MAP_OUTPUT_BYTES"
+    REDUCE_INPUT_GROUPS = "REDUCE_INPUT_GROUPS"
+    REDUCE_INPUT_RECORDS = "REDUCE_INPUT_RECORDS"
+    REDUCE_OUTPUT_RECORDS = "REDUCE_OUTPUT_RECORDS"
+    SPILLED_RECORDS = "SPILLED_RECORDS"
+    FRAMEWORK_GROUP = "tpumr.TaskCounter"
+
+
+class BackendCounter:
+    CPU_MAP_TASKS = "CPU_MAP_TASKS"
+    TPU_MAP_TASKS = "TPU_MAP_TASKS"
+    CPU_MAP_MILLIS = "CPU_MAP_MILLIS"
+    TPU_MAP_MILLIS = "TPU_MAP_MILLIS"
+    TPU_DEVICE_BYTES_STAGED = "TPU_DEVICE_BYTES_STAGED"
+    CPU_BATCH_MAP_TASKS = "CPU_BATCH_MAP_TASKS"
+    GROUP = "tpumr.BackendCounter"
+
+
+class JobCounter:
+    LAUNCHED_MAP_TASKS = "LAUNCHED_MAP_TASKS"
+    LAUNCHED_REDUCE_TASKS = "LAUNCHED_REDUCE_TASKS"
+    GROUP = "tpumr.JobCounter"
+
+
+class Counters:
+    """Thread-safe counter set: (group, name) -> int."""
+
+    def __init__(self) -> None:
+        self._values: dict[tuple[str, str], int] = {}
+        self._lock = threading.Lock()
+
+    def incr(self, group: str, name: str, amount: int = 1) -> None:
+        with self._lock:
+            key = (group, name)
+            self._values[key] = self._values.get(key, 0) + int(amount)
+
+    def value(self, group: str, name: str) -> int:
+        with self._lock:
+            return self._values.get((group, name), 0)
+
+    def merge(self, other: "Counters") -> None:
+        """Add every counter of ``other`` into this set."""
+        with other._lock:
+            values = dict(other._values)
+        for (group, name), v in values.items():
+            self.incr(group, name, v)

@@ -1,0 +1,4 @@
+from tpumr_torch.fs.filesystem import FileStatus, FileSystem, Path
+from tpumr_torch.fs.local import LocalFileSystem
+
+__all__ = ["FileStatus", "FileSystem", "LocalFileSystem", "Path"]

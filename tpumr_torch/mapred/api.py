@@ -1,0 +1,82 @@
+"""User-facing MapReduce API: reporter, collector, mapper, reducer, runner
+and partitioner contracts.
+
+Counterpart of ``tpumr/mapred/api.py``, trimmed to what the K-Means job
+path uses.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Any, Callable, Iterator
+
+from tpumr_torch.core.counters import Counters
+from tpumr_torch.io.writable import deserialize, serialize
+
+
+class Reporter:
+    """Counters of one task attempt."""
+
+    def __init__(self, counters: "Counters | None" = None) -> None:
+        self.counters = counters or Counters()
+
+    def incr_counter(self, group: str, name: str, amount: int = 1) -> None:
+        self.counters.incr(group, name, amount)
+
+
+class OutputCollector:
+    def __init__(self, fn: Callable[[Any, Any], None]) -> None:
+        self._fn = fn
+
+    def collect(self, key: Any, value: Any) -> None:
+        self._fn(key, value)
+
+
+class JobConfigurable:
+    def configure(self, conf: Any) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class Mapper(JobConfigurable):
+    def map(self, key: Any, value: Any, output: OutputCollector,
+            reporter: Reporter) -> None:
+        raise NotImplementedError
+
+
+class Reducer(JobConfigurable):
+    def reduce(self, key: Any, values: Iterator[Any], output: OutputCollector,
+               reporter: Reporter) -> None:
+        raise NotImplementedError
+
+
+class IdentityReducer(Reducer):
+    def reduce(self, key, values, output, reporter):
+        for v in values:
+            output.collect(key, v)
+
+
+class MapRunnable(JobConfigurable):
+    """Runs a map task's whole input; device placement arrives through
+    ``task_ctx``."""
+
+    def run(self, output: OutputCollector, reporter: Reporter,
+            task_ctx: Any = None) -> None:
+        raise NotImplementedError
+
+
+class HashPartitioner(JobConfigurable):
+    """crc32 of the serialized key, modulo the partition count: the JAX
+    package's rule, so both send a key to the same reduce."""
+
+    def get_partition(self, key: Any, value: Any, num_partitions: int) -> int:
+        return zlib.crc32(serialize(key)) % num_partitions
+
+
+class DeserializingComparator:
+    """Default sort order: natural Python order of the deserialized key."""
+
+    def sort_key(self, kbytes: bytes) -> Any:
+        return deserialize(kbytes)

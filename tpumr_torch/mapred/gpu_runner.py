@@ -1,0 +1,256 @@
+"""Device map runner: stages a whole dense split onto the card and runs the
+job's kernel mapper on it.
+
+Counterpart of ``tpumr/mapred/tpu_runner.py``:
+
+- :class:`DeviceSplitCache` is ``HbmSplitCache`` (``:40-106``), keyed by
+  torch device: a split staged once stays resident across the tasks and
+  jobs of the process, so later rounds skip both the read and the copy;
+- :func:`stage_batch` is the dense branch of ``stage_batch`` (``:322-390``);
+- :meth:`GpuMapRunner.run` is ``TpuMapRunner.run`` with its prefetch drain
+  (``:205-250``);
+- :func:`prelaunch_device_maps` is the window path (``:442-514``): it
+  stages and launches a window of map tasks, then brings every task's
+  output to the host in ONE copy, one synchronisation per window;
+- :class:`CpuBatchMapRunner` is the CPU-slot runner (``:517-550``).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from tpumr_torch.core.counters import BackendCounter, TaskCounter
+from tpumr_torch.device import select_device
+from tpumr_torch.fs.filesystem import FileSystem
+from tpumr_torch.io.recordbatch import DenseBatch
+from tpumr_torch.mapred.api import MapRunnable
+from tpumr_torch.mapred.split import DenseSplit, InputSplit
+from tpumr_torch.utils.reflection import new_instance
+
+
+class DeviceSplitCache:
+    """LRU cache of device-resident values, bounded by the bytes charged
+    for them. Keyed by the split's identity (path, row range, dtype, file
+    length and mtime) for staged splits, by (tag, device) for side
+    inputs."""
+
+    def __init__(self, capacity_bytes: int) -> None:
+        self.capacity = capacity_bytes
+        self._entries: "OrderedDict[tuple, tuple[Any, int]]" = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: tuple) -> Any:
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return entry[0]
+
+    def put(self, key: tuple, value: Any, nbytes: int) -> None:
+        with self._lock:
+            if key in self._entries or nbytes > self.capacity:
+                return  # oversized items never evict resident ones
+            while self._bytes + nbytes > self.capacity and self._entries:
+                _, (_old, old_bytes) = self._entries.popitem(last=False)
+                self._bytes -= old_bytes
+            self._entries[key] = (value, nbytes)
+            self._bytes += nbytes
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
+    def drop_where(self, pred) -> None:
+        """Evict every entry whose key satisfies ``pred``."""
+        with self._lock:
+            for k in [k for k in self._entries if pred(k)]:
+                _v, b = self._entries.pop(k)
+                self._bytes -= b
+
+    @property
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
+
+_split_caches: dict[str, DeviceSplitCache] = {}
+_cache_lock = threading.Lock()
+
+
+def split_cache(device: torch.device, capacity_bytes: int) -> DeviceSplitCache:
+    with _cache_lock:
+        c = _split_caches.get(str(device))
+        if c is None:
+            c = _split_caches[str(device)] = DeviceSplitCache(capacity_bytes)
+        c.capacity = capacity_bytes
+        return c
+
+
+def clear_split_caches() -> None:
+    with _cache_lock:
+        for c in _split_caches.values():
+            c.clear()
+        _split_caches.clear()
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy a (possibly read-only) host array onto ``device``. For the card
+    the rows go through a pinned host buffer and an asynchronous copy.
+    Dropping the buffer right after is safe: PyTorch's pinned-memory
+    allocator does not hand a block out again until the copy enqueued
+    from it has completed."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(arr))
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    host.numpy()[...] = arr
+    return host.to(device, non_blocking=True)
+
+
+def stage_batch(conf: Any, task: Any, device: "torch.device | None"
+                ) -> tuple[DenseBatch, int]:
+    """The task's dense split as a batch. With a ``device`` the values are
+    a tensor on it, through the device split cache (a hit skips the read
+    and the copy); ``device=None`` keeps them on the host (CPU slots).
+    Returns (batch, bytes actually copied to the device)."""
+    in_fmt = new_instance(conf.get_input_format(), conf)
+    split = InputSplit.from_dict(task.split)
+    if not isinstance(split, DenseSplit):
+        raise ValueError(f"the port stages dense splits only, got "
+                         f"{type(split).__name__}")
+    if device is None:
+        batch = in_fmt.read_batch(split, conf)
+        return batch, batch.nbytes
+    if not conf.get_boolean("tpumr.tpu.split.cache", True):
+        batch = in_fmt.read_batch(split, conf)
+        return (DenseBatch(to_device(batch.values, device), batch.ids,
+                           batch.meta), batch.nbytes)
+    cache = split_cache(device,
+                        conf.get_int("tpumr.tpu.split.cache.mb", 2048) << 20)
+    # file freshness (length, mtime) is part of the key so a rewritten
+    # input never serves stale resident data
+    st = FileSystem.get(split.path, conf).get_status(split.path)
+    key = (split.path, split.row_start, split.num_rows, split.dtype,
+           split.data_offset, st.length, st.mtime)
+    entry = cache.get(key)
+    if entry is not None:
+        staged, ids, meta = entry
+        return DenseBatch(staged, ids, dict(meta)), 0
+    batch = in_fmt.read_batch(split, conf)
+    staged = to_device(batch.values, device)
+    nbytes = int(batch.values.nbytes)
+    cache.put(key, (staged, batch.ids, dict(batch.meta)), nbytes)
+    return DenseBatch(staged, batch.ids, batch.meta), nbytes
+
+
+def _kernel(conf: Any):
+    from tpumr_torch.ops import get_kernel
+    name = conf.get_map_kernel()
+    if not name:
+        raise ValueError("task placed on the device but no kernel mapper "
+                         "configured (JobConf.set_map_kernel)")
+    return get_kernel(name)
+
+
+class GpuMapRunner(MapRunnable):
+    def configure(self, conf: Any) -> None:
+        self.conf = conf
+
+    def run(self, output, reporter, task_ctx=None) -> None:
+        conf = self.conf
+        kernel = _kernel(conf)
+        pre = task_ctx.device_prefetch if task_ctx is not None else None
+        if pre is not None:
+            # a window already staged, launched and fetched this task's
+            # kernel output; only the drain remains
+            reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                                  TaskCounter.MAP_INPUT_RECORDS,
+                                  pre.num_records)
+            reporter.incr_counter(BackendCounter.GROUP,
+                                  BackendCounter.TPU_DEVICE_BYTES_STAGED,
+                                  pre.staged_bytes)
+            for key, value in kernel.map_batch_drain(pre.fetched, conf,
+                                                     task_ctx):
+                output.collect(key, value)
+            return
+        device = select_device(conf, task_ctx.tpu_device_id)
+        batch, staged_bytes = stage_batch(conf, task_ctx, device)
+        reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                              TaskCounter.MAP_INPUT_RECORDS,
+                              batch.num_records)
+        reporter.incr_counter(BackendCounter.GROUP,
+                              BackendCounter.TPU_DEVICE_BYTES_STAGED,
+                              staged_bytes)
+        for key, value in kernel.map_batch(batch, conf, task_ctx):
+            output.collect(key, value)
+
+
+@dataclass
+class DevicePrefetch:
+    """Fetched kernel output of one map task of a window."""
+    fetched: Any
+    num_records: int
+    staged_bytes: int
+
+
+def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
+                          ) -> "list[DevicePrefetch]":
+    """Stage and launch a window of map tasks' kernels on one device, then
+    fetch EVERY task's output in one device-to-host copy.
+
+    Returns one :class:`DevicePrefetch` per task, possibly for a PREFIX of
+    ``tasks`` only: the window's staged inputs stay on the device until the
+    fetch, so the window closes once it has copied
+    ``tpumr.tpu.pipeline.window.mb`` (always taking at least one task).
+    Split-cache hits copy nothing and do not count."""
+    from tpumr_torch.ops.registry import fetch_to_host
+    kernel = _kernel(conf)
+    dev_ids = {t.tpu_device_id for t in tasks}
+    if len(dev_ids) != 1:
+        raise ValueError(f"a window runs on one device, got slots {dev_ids}")
+    device = select_device(conf, dev_ids.pop())
+    budget = conf.get_int("tpumr.tpu.pipeline.window.mb", 2048) << 20
+    states: list[Any] = []
+    meta: list[tuple[int, int]] = []
+    resident = 0
+    for task in tasks:
+        batch, staged_bytes = stage_batch(conf, task, device)
+        states.append(kernel.map_batch_launch(batch, conf, task))
+        meta.append((batch.num_records, staged_bytes))
+        resident += staged_bytes
+        if resident >= budget and len(states) < len(tasks):
+            break  # close the window early; the caller resumes after us
+    fetched = fetch_to_host(states)     # ONE copy for the window
+    return [DevicePrefetch(f, n, b) for f, (n, b) in zip(fetched, meta)]
+
+
+class CpuBatchMapRunner(MapRunnable):
+    """CPU-slot runner: the whole split through the kernel's vectorized
+    host twin (``map_batch_cpu``)."""
+
+    def configure(self, conf: Any) -> None:
+        self.conf = conf
+
+    def run(self, output, reporter, task_ctx=None) -> None:
+        kernel = _kernel(self.conf)
+        batch, _ = stage_batch(self.conf, task_ctx, None)
+        reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                              TaskCounter.MAP_INPUT_RECORDS,
+                              batch.num_records)
+        reporter.incr_counter(BackendCounter.GROUP,
+                              BackendCounter.CPU_BATCH_MAP_TASKS)
+        for key, value in kernel.map_batch_cpu(batch, self.conf, task_ctx):
+            output.collect(key, value)

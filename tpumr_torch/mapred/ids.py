@@ -1,0 +1,42 @@
+"""Job, task and attempt identifiers.
+
+Counterpart of ``tpumr/mapred/ids.py``, with the same string shapes:
+``job_<cluster>_<n>``, ``task_<cluster>_<n>_[mr]_<t>``,
+``attempt_<cluster>_<n>_[mr]_<t>_<a>``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True, order=True)
+class JobID:
+    cluster: str
+    id: int
+
+    def __str__(self) -> str:
+        return f"job_{self.cluster}_{self.id:04d}"
+
+
+@dataclass(frozen=True, order=True)
+class TaskID:
+    job: JobID
+    is_map: bool
+    id: int
+
+    def __str__(self) -> str:
+        kind = "m" if self.is_map else "r"
+        return f"task_{self.job.cluster}_{self.job.id:04d}_{kind}_{self.id:06d}"
+
+
+@dataclass(frozen=True, order=True)
+class TaskAttemptID:
+    task: TaskID
+    attempt: int
+
+    def __str__(self) -> str:
+        t = self.task
+        kind = "m" if t.is_map else "r"
+        return (f"attempt_{t.job.cluster}_{t.job.id:04d}_{kind}_"
+                f"{t.id:06d}_{self.attempt}")

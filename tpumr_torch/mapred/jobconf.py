@@ -1,0 +1,96 @@
+"""JobConf: a Configuration with typed accessors for the job contract.
+
+Counterpart of ``tpumr/mapred/jobconf.py``, trimmed to what the K-Means job
+path uses. Key strings and defaults are the JAX package's
+(``tpumr/core/confkeys.py``), so a job configuration written for it runs
+unchanged here.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from tpumr_torch.core.configuration import Configuration
+from tpumr_torch.utils.reflection import new_instance
+
+DEFAULTS: dict[str, Any] = {
+    "mapred.reduce.tasks": 1,
+    "mapred.map.tasks": 1,
+    "io.sort.mb": 100,
+}
+
+
+class JobConf(Configuration):
+    def __init__(self, other: "Configuration | None" = None) -> None:
+        super().__init__(other=other, defaults=DEFAULTS)
+
+    # ------------------------------------------------------------ io paths
+
+    def set_input_paths(self, *paths: str) -> None:
+        self.set("mapred.input.dir", ",".join(paths))
+
+    def set_output_path(self, path: str) -> None:
+        self.set("mapred.output.dir", path)
+
+    # ------------------------------------------------------------ task counts
+
+    @property
+    def num_reduce_tasks(self) -> int:
+        return self.get_int("mapred.reduce.tasks")
+
+    def set_num_reduce_tasks(self, n: int) -> None:
+        self.set("mapred.reduce.tasks", n)
+
+    @property
+    def num_map_tasks_hint(self) -> int:
+        return self.get_int("mapred.map.tasks")
+
+    # ------------------------------------------------------------ classes
+
+    def set_reducer_class(self, cls: type) -> None:
+        self.set_class("mapred.reducer.class", cls)
+
+    def get_reducer_class(self) -> "type | None":
+        return self.get_class("mapred.reducer.class")
+
+    def get_partitioner_class(self) -> type:
+        from tpumr_torch.mapred.api import HashPartitioner
+        return self.get_class("mapred.partitioner.class", HashPartitioner)
+
+    def set_input_format(self, cls: type) -> None:
+        self.set_class("mapred.input.format.class", cls)
+
+    def get_input_format(self) -> type:
+        cls = self.get_class("mapred.input.format.class")
+        if cls is None:
+            raise ValueError("mapred.input.format.class not set: the port "
+                             "reads DenseInputFormat input only")
+        return cls
+
+    def set_output_format(self, cls: type) -> None:
+        self.set_class("mapred.output.format.class", cls)
+
+    def get_output_format(self) -> type:
+        from tpumr_torch.mapred.output_formats import TextOutputFormat
+        return self.get_class("mapred.output.format.class", TextOutputFormat)
+
+    def get_output_key_comparator(self) -> Any:
+        from tpumr_torch.mapred.api import DeserializingComparator
+        return new_instance(self.get_class(
+            "mapred.output.key.comparator.class", DeserializingComparator),
+            self)
+
+    # ------------------------------------------------------------ kernel
+
+    def set_map_kernel(self, name: str) -> None:
+        """Name a registered kernel mapper (``tpumr_torch.ops`` registry)."""
+        self.set("tpumr.map.kernel", name)
+
+    def get_map_kernel(self) -> "str | None":
+        return self.get("tpumr.map.kernel")
+
+    # ------------------------------------------------------------ sort/spill
+
+    @property
+    def sort_mb(self) -> int:
+        return self.get_int("io.sort.mb")

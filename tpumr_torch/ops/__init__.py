@@ -1,0 +1,6 @@
+"""Kernel mappers. Importing the package registers every built-in kernel."""
+
+from tpumr_torch.ops.registry import KernelMapper, get_kernel, register_kernel
+from tpumr_torch.ops import kmeans  # noqa: F401  (registers kmeans-assign)
+
+__all__ = ["KernelMapper", "get_kernel", "register_kernel"]
