@@ -6,9 +6,10 @@ Builds the port's CUDA kernels from tpumr_torch/csrc, holds each against its
 plain torch version on the card, then drives the port's main path: a
 K-Means job (100,000,000 x 16 f32 points, k = 16, 25 dense splits of
 4,000,000 rows, one reduce) through tpumr_torch's LocalJobRunner, one cold
-run and three warm runs. It checks that every job launched the kernel once
-per split and committed the same centroids as an oracle computed here in
-float64, and prints the last line
+run and three warm runs, then one more warm job submitted without
+tpumr.local.run.on.tpu, as a user would. It checks that every job launched
+the kernel once per split and committed the same centroids as an oracle
+computed here in float64, and prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -39,8 +40,10 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 D, K = 16, 16
 ROWS_PER_SPLIT = 4_000_000
-#: ids may differ only where the two best plain distances differ by less
-#: than this, relative: f32 sums in another order flip such near-ties
+#: ids may differ only at a near-tie, where the two best plain distances to
+#: distinct centroids differ by less than this, relative (f32 sums in
+#: another order flip such ties); and wherever they differ, the kernel's
+#: pick must lie within this of the best plain distance
 NEAR_TIE_RTOL = 1e-5
 #: committed centroids against the float64 oracle. rtol 1e-4 as the JAX
 #: package's tests hold f32 partial sums; atol 1e-5 because a near-tie
@@ -93,50 +96,71 @@ def plain_distances(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return x2 - 2.0 * (x @ c.T) + (c * c).sum(dim=1)[None, :]
 
 
-def compare_ids(x, c, ids, ref) -> tuple[int, int, int, float]:
-    """(mismatches, mismatches that are not near-ties, near-ties,
-    max |d2[kernel id] - d2[plain id]|) over the plain distances."""
+def compare_ids(x, c, ids, ref, distinct=None) -> dict:
+    """The kernel's ids against the plain version's, over the plain
+    distances d2. ``distinct`` holds the distinct centroids where ``c``
+    repeats some (default ``c``): a near-tie is a point whose two best
+    distances to distinct centroids differ by at most NEAR_TIE_RTOL,
+    relative. Counts the mismatches, the near-ties, the mismatches away
+    from a near-tie (``unexcused``) and the points whose kernel pick lies
+    farther than NEAR_TIE_RTOL, relative, from the best distance
+    (``far_picks``); ``max_abs_err`` is max |d2[kernel id] - d2[plain id]|."""
     d2 = plain_distances(x, c)
-    best2 = d2.topk(2, dim=1, largest=False).values
-    near = (best2[:, 1] - best2[:, 0]).abs() <= \
-        NEAR_TIE_RTOL * best2[:, 0].abs()
+    best = d2.min(dim=1).values
+    dd = d2 if distinct is None else plain_distances(x, distinct)
+    best2 = dd.topk(2, dim=1, largest=False).values
+    near = best2[:, 1] - best2[:, 0] <= NEAR_TIE_RTOL * best2[:, 0].abs()
     mism = ids != ref
-    err = (d2.gather(1, ids.long()[:, None]) -
-           d2.gather(1, ref.long()[:, None])).abs().max()
-    return (int(mism.sum()), int((mism & ~near).sum()), int(near.sum()),
-            float(err))
+    picked = d2.gather(1, ids.long()[:, None])[:, 0]
+    planned = d2.gather(1, ref.long()[:, None])[:, 0]
+    return {"mismatches": int(mism.sum()), "near_ties": int(near.sum()),
+            "unexcused": int((mism & ~near).sum()),
+            "far_picks": int((picked - best > NEAR_TIE_RTOL * best.abs())
+                             .sum()),
+            "max_abs_err": float((picked - planned).abs().max())}
+
+
+def check_ids(label: str, cmp: dict) -> None:
+    check(cmp["unexcused"] == 0, f"kmeans_assign {label}: "
+          f"{cmp['unexcused']} ids differ from assign_plain away from a "
+          f"near-tie")
+    check(cmp["far_picks"] == 0, f"kmeans_assign {label}: "
+          f"{cmp['far_picks']} points assigned to a centroid farther than "
+          f"the nearest by more than {NEAR_TIE_RTOL} relative")
 
 
 def kernel_phase(km) -> dict:
     """kmeans_assign against assign_plain at the main path's split shape, a
-    ragged shape and a shape with exact ties."""
+    ragged shape, a shape with exact ties, and off the main path a shape
+    with rows wider than 32 floats (the kernel's other branch) and one at
+    its largest k."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [("main", 4_000_000, 16, 16), ("ragged", 1_000_003, 5, 7),
-              ("ties", 1_000_000, 16, 16)]
+              ("ties", 1_000_000, 16, 16), ("wide", 50_000, 40, 300),
+              ("large_k", 10_000, 1, km.MAX_CENTROID_FLOATS)]
     rows = {}
     for label, n, d, k in shapes:
         x = torch.randn(n, d, device="cuda", generator=gen)
+        distinct = None
         if label == "ties":
             # every centroid twice: each point's best distance is an exact
             # tie, which must go to the lower copy
-            half = torch.randn(k // 2, d, device="cuda", generator=gen)
-            c = torch.cat([half, half]).contiguous()
+            distinct = torch.randn(k // 2, d, device="cuda", generator=gen)
+            c = torch.cat([distinct, distinct]).contiguous()
         else:
             c = torch.randn(k, d, device="cuda", generator=gen)
         ids = km.kmeans_assign(x, c)
         ref = km.assign_plain(x, c)
         torch.cuda.synchronize()
-        mism, unexcused, near, err = compare_ids(x, c, ids, ref)
-        check(unexcused == 0, f"kmeans_assign {label}: {unexcused} ids "
-              f"differ from assign_plain away from a near-tie")
+        cmp = compare_ids(x, c, ids, ref, distinct)
+        check_ids(label, cmp)
         check(int(ids.min()) >= 0 and int(ids.max()) < k,
               f"kmeans_assign {label}: id out of range")
         if label == "ties":
             check(int(ids.max()) < k // 2 and int(ref.max()) < k // 2,
                   "ties: an exact tie went to the higher index")
         bound, bound_by = assign_bound_ms(n, d, k)
-        row = {"shape": [n, d, k], "mismatches": mism,
-               "near_ties": near, "max_abs_err": err,
+        row = {"shape": [n, d, k], **cmp,
                "kernel_ms": time_ms(lambda: km.kmeans_assign(x, c)),
                "plain_ms": time_ms(lambda: km.assign_plain(x, c)),
                "library_ms": time_ms(
@@ -167,7 +191,7 @@ def write_points(work: str, n: int) -> np.ndarray:
     return cents
 
 
-def job_conf(work: str, out: str):
+def job_conf(work: str, out: str, run_on_tpu_key: bool = True):
     from tpumr_torch.mapred.input_formats import DenseInputFormat
     from tpumr_torch.mapred.jobconf import JobConf
     from tpumr_torch.ops.kmeans import CentroidReducer
@@ -182,7 +206,8 @@ def job_conf(work: str, out: str):
     # the whole 6.4 GB dataset stays resident (8% of an 80 GB card)
     conf.set("tpumr.tpu.split.cache.mb", 8192)
     conf.set_map_kernel("kmeans-assign")
-    conf.set("tpumr.local.run.on.tpu", True)
+    if run_on_tpu_key:
+        conf.set("tpumr.local.run.on.tpu", True)
     return conf
 
 
@@ -204,19 +229,21 @@ def oracle(work: str, n: int, cents: np.ndarray, km) -> dict:
     c = torch.from_numpy(cents).cuda()
     sums = torch.zeros(K, D, dtype=torch.float64, device="cuda")
     counts = torch.zeros(K, dtype=torch.int64, device="cuda")
-    mism = unexcused = 0
+    totals = {"mismatches": 0, "near_ties": 0, "unexcused": 0,
+              "far_picks": 0}
     for lo in range(0, n, ROWS_PER_SPLIT):
         x = torch.from_numpy(np.array(pts[lo:lo + ROWS_PER_SPLIT])).cuda()
         ref = km.assign_plain(x, c)
-        m, u, _near, _err = compare_ids(x, c, km.kmeans_assign(x, c), ref)
-        mism, unexcused = mism + m, unexcused + u
+        cmp = compare_ids(x, c, km.kmeans_assign(x, c), ref)
+        for key in totals:
+            totals[key] += cmp[key]
         onehot = torch.nn.functional.one_hot(ref.long(), K).double()
         sums += onehot.T @ x.double()
         counts += torch.bincount(ref, minlength=K)
     counts_h = counts.cpu().numpy()
     check(int(counts_h.sum()) == n, f"oracle counted {counts_h.sum()} of {n}")
     return {"centroids": (sums / counts[:, None]).cpu().numpy(),
-            "counts": counts_h, "mismatches": mism, "unexcused": unexcused}
+            "counts": counts_h, "kernel_vs_plain": totals}
 
 
 def main_path(n: int, km, profile: bool) -> dict:
@@ -271,6 +298,7 @@ def main_path(n: int, km, profile: bool) -> dict:
         main_launches = km.kmeans_assign.launches
         check(all(o == outputs[0] for o in outputs),
               "the four jobs committed different centroids")
+        default_route(work, n_splits, km, outputs[0])
 
         t = time.monotonic()
         ref = oracle(work, n, cents, km)
@@ -280,11 +308,9 @@ def main_path(n: int, km, profile: bool) -> dict:
         log("oracle " + json.dumps({
             "seconds": time.monotonic() - t,
             "max_abs_err": float(err.max()), "max_rel_err": rel,
-            "kernel_vs_plain_mismatches": ref["mismatches"],
-            "kernel_vs_plain_unexcused": ref["unexcused"],
+            "kernel_vs_plain": ref["kernel_vs_plain"],
             "counts": ref["counts"].tolist()}))
-        check(ref["unexcused"] == 0, "kmeans_assign differs from "
-              "assign_plain away from a near-tie on the job's points")
+        check_ids("on the job's points", ref["kernel_vs_plain"])
         check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
                           np.abs(ref["centroids"]))),
               f"committed centroids off the float64 oracle: max abs "
@@ -294,6 +320,32 @@ def main_path(n: int, km, profile: bool) -> dict:
         return {"jobs": jobs, "launches": main_launches}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def default_route(work: str, n_splits: int, km, want: bytes) -> None:
+    """One more warm job as a user would submit it, without
+    tpumr.local.run.on.tpu: on the card every map still takes the device
+    path and launches the kernel, and none runs on the host."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.mapred.local_runner import run_job
+    km.clear_centroid_cache()
+    launches0 = km.kmeans_assign.launches
+    result = run_job(job_conf(work, "out-default", run_on_tpu_key=False))
+    counts = {name: result.counters.value(BackendCounter.GROUP, name)
+              for name in (BackendCounter.TPU_MAP_TASKS,
+                           BackendCounter.CPU_MAP_TASKS,
+                           BackendCounter.CPU_BATCH_MAP_TASKS)}
+    counts["kmeans_assign_launches"] = km.kmeans_assign.launches - launches0
+    log("default_route " + json.dumps(counts))
+    check(counts["kmeans_assign_launches"] == n_splits and
+          counts[BackendCounter.TPU_MAP_TASKS] == n_splits and
+          counts[BackendCounter.CPU_MAP_TASKS] == 0 and
+          counts[BackendCounter.CPU_BATCH_MAP_TASKS] == 0,
+          "without tpumr.local.run.on.tpu the job did not run every map "
+          "through the kernel on the card")
+    with open(os.path.join(work, "out-default", "part-00000"), "rb") as f:
+        check(f.read() == want, "the job without tpumr.local.run.on.tpu "
+              "committed other centroids")
 
 
 def profile_warm_job(work: str) -> None:
@@ -384,8 +436,7 @@ def main() -> None:
 
     from tpumr_torch.ops import kmeans as km
     from tpumr_torch.ops import native
-    log(f"kernel build: {native.build():.3f}s "
-        f"({', '.join(sorted(native.KERNELS))})")
+    log(f"kernel build: {native.build():.3f}s (kmeans_assign)")
 
     shapes = kernel_phase(km)
     main = main_path(args.points, km, args.profile)

@@ -24,7 +24,8 @@ from tpumr_torch.core.counters import BackendCounter, JobCounter, TaskCounter
 from tpumr_torch.mapred import gpu_runner
 from tpumr_torch.mapred.input_formats import DenseInputFormat
 from tpumr_torch.mapred.jobconf import JobConf
-from tpumr_torch.mapred.local_runner import run_job
+from tpumr_torch.mapred import local_runner
+from tpumr_torch.mapred.local_runner import maps_on_device, run_job
 from tpumr_torch.ops import registry
 from tpumr_torch.ops.kmeans import CentroidReducer, clear_centroid_cache
 
@@ -58,7 +59,8 @@ def _conf(conf, tmp_path, out, rows, on_device=True):
     conf.set("tpumr.kmeans.centroids", f"file://{tmp_path}/cents.npy")
     conf.set_map_kernel("kmeans-assign")
     conf.set_num_reduce_tasks(1)
-    conf.set("tpumr.local.run.on.tpu", on_device)
+    if on_device is not None:
+        conf.set("tpumr.local.run.on.tpu", on_device)
     return conf
 
 
@@ -174,6 +176,51 @@ def test_port_raises_without_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
         run_job(_port_conf(tmp_path, "out-b", rows), device="cuda")
     assert run_job(_port_conf(tmp_path, "out-c", rows),
                    device="cpu").successful
+
+
+@pytest.mark.parametrize("device,key,kernel,want", [
+    ("cuda", None, True, True),      # the card: the key is not needed
+    ("cuda", False, True, True),     # nor can it send maps to the host
+    ("cuda:0", None, True, True),
+    ("cpu", None, True, False),      # CPU: numpy batch runner
+    ("cpu", True, True, True),       # CPU: windows on CPU tensors
+    ("cuda", None, False, False),    # no kernel mapper named
+])
+def test_maps_on_device_follows_the_device(device, key, kernel, want):
+    """The device decides where a kernel mapper's tasks run; on cuda they
+    never go to the host batch runner."""
+    conf = JobConf()
+    if kernel:
+        conf.set_map_kernel("kmeans-assign")
+    if key is not None:
+        conf.set("tpumr.local.run.on.tpu", key)
+    assert maps_on_device(conf, torch.device(device)) is want
+
+
+def test_run_job_on_cuda_needs_no_run_on_tpu_key(tmp_path, monkeypatch):
+    """run_job routes by the device it selected: with cuda selected and
+    tpumr.local.run.on.tpu unset, every map takes the device path and none
+    the CPU batch runner. The tasks compute on the CPU here
+    (tpumr_torch.device=cpu); only the job's routing sees cuda."""
+    monkeypatch.setattr(local_runner, "select_device",
+                        lambda conf: torch.device("cuda", 0))
+    pts, cents, rows = _wide()
+    _write_inputs(tmp_path, pts, cents)
+    conf = _port_conf(tmp_path, "out-port", rows, on_device=None)
+    conf.set("tpumr_torch.device", "cpu")
+    clear_centroid_cache()
+    gpu_runner.clear_split_caches()
+    res = run_job(conf)
+    _jres, want = _jax_job(tmp_path, rows)
+    got = _centroids(tmp_path / "out-port")
+    assert res.counters.value(BackendCounter.GROUP,
+                              BackendCounter.TPU_MAP_TASKS) == 5
+    for name in (BackendCounter.CPU_BATCH_MAP_TASKS,
+                 BackendCounter.CPU_MAP_TASKS):
+        assert res.counters.value(BackendCounter.GROUP, name) == 0, name
+    assert sorted(got) == sorted(want)
+    for cid in want:
+        np.testing.assert_allclose(got[cid], want[cid], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("keys,fetches", [

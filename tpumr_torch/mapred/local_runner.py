@@ -2,16 +2,20 @@
 tasks, commit.
 
 Counterpart of ``tpumr/mapred/local_runner.py``. Map tasks run one after
-another. With ``tpumr.local.run.on.tpu`` set and a kernel mapper named, they
-run on the device through windows (the path of ``local_runner.py:108-130``):
-a window of tasks is staged and launched back to back, every task's output
-comes to the host in one copy (``gpu_runner.prelaunch_device_maps``), and
-each task is then drained through the normal collect/spill path. Otherwise
-they run on the CPU batch runner.
+another. A kernel mapper's tasks run through windows (the path of
+``local_runner.py:108-130``): a window of tasks is staged and launched back
+to back, every task's output comes to the host in one copy
+(``gpu_runner.prelaunch_device_maps``), and each task is then drained
+through the normal collect/spill path.
 
 The entry points run on ``cuda`` unless the caller asks for the CPU with
 ``device="cpu"`` or the conf key ``tpumr_torch.device=cpu``
-(``tpumr_torch/device.py``).
+(``tpumr_torch/device.py``). The device decides where a kernel mapper's
+tasks run (:func:`maps_on_device`): on ``cuda`` always through the windows
+and the CUDA kernel, whatever ``tpumr.local.run.on.tpu`` says. Only on the
+CPU does that key choose between the same windows on CPU tensors (set) and
+the numpy batch runner (unset), as the JAX package's key chooses between
+its device and its CPU slots.
 """
 
 from __future__ import annotations
@@ -59,20 +63,21 @@ class LocalJobRunner:
         conf = JobConf(job_conf)
         if self.device is not None:
             conf.set(DEVICE_KEY, str(self.device))
-        select_device(conf)     # no CUDA and no CPU asked for: raise now
+        device = select_device(conf)   # no CUDA, no CPU asked for: raise
         with LocalJobRunner._seq_lock:
             LocalJobRunner._seq += 1
             job_id = JobID("local", LocalJobRunner._seq)
         t0 = time.monotonic()
         work_root = tempfile.mkdtemp(prefix=f"tpumr_torch-{job_id}-")
         try:
-            result = self._run(job_id, conf, work_root)
+            result = self._run(job_id, conf, device, work_root)
             result.wall_time = time.monotonic() - t0
             return result
         finally:
             shutil.rmtree(work_root, ignore_errors=True)
 
-    def _run(self, job_id: JobID, conf: JobConf, work_root: str) -> JobResult:
+    def _run(self, job_id: JobID, conf: JobConf, device: torch.device,
+             work_root: str) -> JobResult:
         in_fmt = new_instance(conf.get_input_format(), conf)
         new_instance(conf.get_output_format(), conf).check_output_specs(conf)
         splits = in_fmt.get_splits(conf, conf.num_map_tasks_hint)
@@ -84,8 +89,7 @@ class LocalJobRunner:
         committer.setup_job()
         counters = Counters()
 
-        run_on_tpu = (conf.get_boolean("tpumr.local.run.on.tpu", False)
-                      and conf.get_map_kernel() is not None)
+        run_on_tpu = maps_on_device(conf, device)
         tasks = [
             Task(TaskAttemptID(TaskID(job_id, True, i), 0), partition=i,
                  num_reduces=num_reduces, split=splits[i].to_dict(),
@@ -130,6 +134,15 @@ class LocalJobRunner:
 
         committer.commit_job()
         return JobResult(job_id, True, counters, len(splits), num_reduces)
+
+
+def maps_on_device(conf: JobConf, device: torch.device) -> bool:
+    """Whether a job's map tasks take the device path: a kernel mapper is
+    named, and the job runs on ``cuda`` or asks for the device path on the
+    CPU with ``tpumr.local.run.on.tpu``."""
+    return conf.get_map_kernel() is not None and (
+        device.type == "cuda" or
+        conf.get_boolean("tpumr.local.run.on.tpu", False))
 
 
 def run_job(conf: Any, device: "str | torch.device | None" = None

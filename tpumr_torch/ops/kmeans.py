@@ -80,7 +80,7 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor
     out = torch.empty(n, dtype=torch.int32, device=points.device)
     if n == 0:
         return out
-    lib = native.load("kmeans_assign")
+    lib = native.load()
     with torch.cuda.device(points.device):
         rc = lib.kmeans_assign(points.data_ptr(), centroids.data_ptr(),
                                out.data_ptr(), n, d, k,
@@ -226,7 +226,6 @@ class CentroidReducer(Reducer):
 
 class KMeansAssignKernel(KernelMapper):
     name = "kmeans-assign"
-    cpu_mapper_class = KMeansCpuMapper
 
     def map_batch_launch(self, batch, conf, task):
         """Enqueue assign + partials on the batch's device; return the

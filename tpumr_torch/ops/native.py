@@ -1,12 +1,12 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernel.
 
 No counterpart in ``tpumr/``: the JAX package's one kernel is compiled by
-Pallas inside ``pl.pallas_call``. Here each kernel is one source under
-``tpumr_torch/csrc/`` with a plain C entry point. At first use ``nvcc``
-compiles it for ``sm_90a`` into a shared library under ``tpumr_torch/build/``
-(listed in ``.gitignore``), and ``ctypes`` loads it. A library newer than its
-source is reused. Nothing is built or loaded at import time: the CPU tests
-import every module of the package on a machine without ``nvcc``.
+Pallas inside ``pl.pallas_call``. Here it is ``tpumr_torch/csrc/
+kmeans_assign.cu`` with a plain C entry point. At first use ``nvcc`` compiles
+it for ``sm_90a`` into a shared library under ``tpumr_torch/build/`` (listed
+in ``.gitignore``), and ``ctypes`` loads it. A library newer than its source
+is reused. Nothing is built or loaded at import time: the CPU tests import
+every module of the package on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,23 +19,14 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "build")
+SOURCE = os.path.join(_PKG, "csrc", "kmeans_assign.cu")
+LIBRARY = os.path.join(_PKG, "build", "libkmeans_assign.so")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-#: kernel library -> (source under csrc/, {C entry point: argtypes}).
-#: Every entry point returns the launch's cudaError_t as an int.
-KERNELS: dict[str, tuple[str, dict[str, list]]] = {
-    "kmeans_assign": ("kmeans_assign.cu",
-                      {"kmeans_assign": [_P, _P, _P, _I, _I, _I, _P]}),
-}
-
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_lib: "ctypes.CDLL | None" = None
 
 
 def _nvcc() -> str:
@@ -43,63 +34,43 @@ def _nvcc() -> str:
     found = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
              else shutil.which("nvcc"))
     if not found or not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
-                           "built from tpumr_torch/csrc on a machine with "
-                           "the CUDA toolkit (set CUDA_HOME)")
+        raise RuntimeError("nvcc not found: the port's CUDA kernel is built "
+                           "from tpumr_torch/csrc on a machine with the CUDA "
+                           "toolkit (set CUDA_HOME)")
     return found
 
 
-def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
-
-
-def _stale(name: str) -> bool:
-    src = os.path.join(CSRC_DIR, KERNELS[name][0])
-    lib = library_path(name)
-    return not os.path.exists(lib) or \
-        os.path.getmtime(lib) < os.path.getmtime(src)
-
-
-def build(names: "list[str] | None" = None) -> float:
-    """Compile every stale kernel library in ``names`` (all by default),
-    one ``nvcc`` per source, all started together. Returns the seconds
-    it took; raises with the compiler's output if any build fails."""
+def build() -> float:
+    """Compile the kernel library if it is missing or older than its
+    source. Returns the seconds it took; raises with the compiler's output
+    if the build fails."""
     t0 = time.monotonic()
-    todo = [n for n in (names or list(KERNELS)) if _stale(n)]
-    if not todo:
+    if os.path.exists(LIBRARY) and \
+            os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
         return 0.0
-    nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = []
-    for name in todo:
-        tmp = f"{library_path(name)}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, KERNELS[name][0])]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode == 0:
-            os.replace(tmp, library_path(name))
-        else:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
-                          f"{out.decode(errors='replace')}")
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build failed: nvcc exit "
+                           f"{proc.returncode}\n"
+                           f"{proc.stdout.decode(errors='replace')}")
+    os.replace(tmp, LIBRARY)
     return time.monotonic() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built if stale, with every entry
-    point's ``argtypes`` and ``restype`` set."""
+def load() -> ctypes.CDLL:
+    """The kernel library, built if stale. Its entry point
+    ``kmeans_assign(points, centroids, out, n, d, k, stream)`` returns the
+    launch's cudaError_t as an int."""
+    global _lib
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(library_path(name))
-            for fn, argtypes in KERNELS[name][1].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIBRARY)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.kmeans_assign.argtypes = [p, p, p, i, i, i, p]
+            lib.kmeans_assign.restype = ctypes.c_int
+            _lib = lib
+        return _lib
