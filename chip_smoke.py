@@ -2,14 +2,21 @@
 
     python3 chip_smoke.py [--points N] [--profile]
 
-Builds the port's CUDA kernels from tpumr_torch/csrc, holds each against its
-plain torch version on the card, then drives the port's main path: a
-K-Means job (100,000,000 x 16 f32 points, k = 16, 25 dense splits of
-4,000,000 rows, one reduce) through tpumr_torch's LocalJobRunner, one cold
-run and three warm runs, then one more warm job submitted without
-tpumr.local.run.on.tpu, as a user would. It checks that every job launched
-the kernel once per split and committed the same centroids as an oracle
-computed here in float64, and prints the last line
+Builds the port's CUDA kernels from tpumr_torch/csrc (one nvcc call) and
+holds each against its plain torch version on the card:
+kmeans_assign_partials (assignment fused with the per-cluster sums and
+counts, d <= 32 and k <= 64) against assign_and_partials_plain, and
+kmeans_assign (assignment only, every other shape) against assign_plain.
+Then it drives the port's main path: a K-Means job (100,000,000 x 16 f32
+points, k = 16, 25 dense splits of 4,000,000 rows, one reduce) through
+tpumr_torch's LocalJobRunner, one cold run and three warm runs, then one
+more warm job submitted without tpumr.local.run.on.tpu, as a user would.
+It checks that every job launched the fused kernel once per split and
+kmeans_assign never, and committed the same centroids as an oracle computed
+here in float64. A second, smaller job whose shape lies outside the fused
+range (2,000,000 x 40 points, k = 300, 4 splits) drives kmeans_assign once
+per split, and its centroids are held against a float64 oracle too. It
+prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -40,17 +47,35 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 D, K = 16, 16
 ROWS_PER_SPLIT = 4_000_000
+#: the second job, outside the fused kernel's range: points, d, k, rows per
+#: split
+JOB2_N, JOB2_D, JOB2_K, JOB2_ROWS = 2_000_000, 40, 300, 500_000
 #: ids may differ only at a near-tie, where the two best plain distances to
 #: distinct centroids differ by less than this, relative (f32 sums in
 #: another order flip such ties); and wherever they differ, the kernel's
 #: pick must lie within this of the best plain distance
 NEAR_TIE_RTOL = 1e-5
+#: kernel-phase shapes (label, n, d, k) of kmeans_assign: the main path's
+#: split, a ragged one, exact ties, the second job's split, rows wider than
+#: 32 floats (its other branch) and its largest k (k * d = 16,384)
+ASSIGN_SHAPES = [("main", ROWS_PER_SPLIT, D, K), ("ragged", 1_000_003, 5, 7),
+                 ("ties", 1_000_000, 16, 16),
+                 ("job2", JOB2_ROWS, JOB2_D, JOB2_K),
+                 ("wide", 50_000, 40, 300), ("large_k", 10_000, 1, 16_384)]
+#: ... and of kmeans_assign_partials: the main path's split, a ragged one,
+#: exact ties, and the edge of its range (d = 32, k = 64)
+FUSED_SHAPES = [("main", ROWS_PER_SPLIT, D, K), ("ragged", 1_000_003, 5, 7),
+                ("ties", 1_000_000, 16, 16), ("fused_edge", 1_000_003, 32, 64)]
 #: committed centroids against the float64 oracle. rtol 1e-4 as the JAX
 #: package's tests hold f32 partial sums; atol 1e-5 because a near-tie
 #: point the kernel and the oracle assign differently moves a mean by
 #: |x| / count (about 1e-6 at this size), which no rtol covers for a
 #: coordinate whose mean is near 0
 CENTROID_RTOL, CENTROID_ATOL = 1e-4, 1e-5
+#: the fused kernel's sums against a float64 sum over its own ids: within
+#: this times the sum of |x| of the cluster's points, per dimension (f32
+#: sums of at most a few thousand terms in a row, then in order)
+SUMS_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -91,6 +116,17 @@ def assign_bound_ms(n: int, d: int, k: int) -> tuple[float, str]:
         "operations"
 
 
+def fused_bound_ms(n: int, d: int, k: int) -> tuple[float, str]:
+    """Least time for the card for assignment plus partials: each point and
+    centroid read once, each id, sum and count written once, against 2nkd
+    operations of distances and nd additions of sums."""
+    t_bytes = (4 * n * d + 4 * k * d + 4 * n + 4 * k * d + 4 * k) \
+        / PEAK_BYTES_PER_S
+    t_ops = (2 * n * k * d + n * d) / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
 def plain_distances(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     x2 = (x * x).sum(dim=1, keepdim=True)
     return x2 - 2.0 * (x @ c.T) + (c * c).sum(dim=1)[None, :]
@@ -121,44 +157,49 @@ def compare_ids(x, c, ids, ref, distinct=None) -> dict:
 
 
 def check_ids(label: str, cmp: dict) -> None:
-    check(cmp["unexcused"] == 0, f"kmeans_assign {label}: "
+    check(cmp["unexcused"] == 0, f"{label}: "
           f"{cmp['unexcused']} ids differ from assign_plain away from a "
           f"near-tie")
-    check(cmp["far_picks"] == 0, f"kmeans_assign {label}: "
+    check(cmp["far_picks"] == 0, f"{label}: "
           f"{cmp['far_picks']} points assigned to a centroid farther than "
           f"the nearest by more than {NEAR_TIE_RTOL} relative")
 
 
+def make_inputs(label: str, n: int, d: int, k: int, gen):
+    """Points and centroids of a kernel-phase shape, and for ``ties`` the
+    distinct centroids (every centroid twice: each point's best distance is
+    an exact tie, which must go to the lower copy)."""
+    x = torch.randn(n, d, device="cuda", generator=gen)
+    if label == "ties":
+        distinct = torch.randn(k // 2, d, device="cuda", generator=gen)
+        return x, torch.cat([distinct, distinct]).contiguous(), distinct
+    return x, torch.randn(k, d, device="cuda", generator=gen), None
+
+
+def check_range_and_ties(name: str, label: str, ids, ref, k: int) -> None:
+    check(int(ids.min()) >= 0 and int(ids.max()) < k,
+          f"{name} {label}: id out of range")
+    if label == "ties":
+        check(int(ids.max()) < k // 2 and int(ref.max()) < k // 2,
+              f"{name} ties: an exact tie went to the higher index")
+
+
 def kernel_phase(km) -> dict:
     """kmeans_assign against assign_plain at the main path's split shape, a
-    ragged shape, a shape with exact ties, and off the main path a shape
-    with rows wider than 32 floats (the kernel's other branch) and one at
-    its largest k."""
+    ragged shape, a shape with exact ties, the second job's split shape
+    (outside the fused range, where the job launches it), and off the main
+    path a shape with rows wider than 32 floats (the kernel's other branch)
+    and one at its largest k."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [("main", 4_000_000, 16, 16), ("ragged", 1_000_003, 5, 7),
-              ("ties", 1_000_000, 16, 16), ("wide", 50_000, 40, 300),
-              ("large_k", 10_000, 1, km.MAX_CENTROID_FLOATS)]
     rows = {}
-    for label, n, d, k in shapes:
-        x = torch.randn(n, d, device="cuda", generator=gen)
-        distinct = None
-        if label == "ties":
-            # every centroid twice: each point's best distance is an exact
-            # tie, which must go to the lower copy
-            distinct = torch.randn(k // 2, d, device="cuda", generator=gen)
-            c = torch.cat([distinct, distinct]).contiguous()
-        else:
-            c = torch.randn(k, d, device="cuda", generator=gen)
+    for label, n, d, k in ASSIGN_SHAPES:
+        x, c, distinct = make_inputs(label, n, d, k, gen)
         ids = km.kmeans_assign(x, c)
         ref = km.assign_plain(x, c)
         torch.cuda.synchronize()
         cmp = compare_ids(x, c, ids, ref, distinct)
-        check_ids(label, cmp)
-        check(int(ids.min()) >= 0 and int(ids.max()) < k,
-              f"kmeans_assign {label}: id out of range")
-        if label == "ties":
-            check(int(ids.max()) < k // 2 and int(ref.max()) < k // 2,
-                  "ties: an exact tie went to the higher index")
+        check_ids(f"kmeans_assign {label}", cmp)
+        check_range_and_ties("kmeans_assign", label, ids, ref, k)
         bound, bound_by = assign_bound_ms(n, d, k)
         row = {"shape": [n, d, k], **cmp,
                "kernel_ms": time_ms(lambda: km.kmeans_assign(x, c)),
@@ -173,34 +214,92 @@ def kernel_phase(km) -> dict:
     return rows
 
 
-def write_points(work: str, n: int) -> np.ndarray:
-    """bench.py's K-Means data: centroids then points from
-    default_rng(0), written chunked so host memory stays about one split."""
-    rng = np.random.default_rng(0)
-    cents = rng.standard_normal(size=(K, D), dtype=np.float32)
-    np.save(os.path.join(work, "cents.npy"), cents)
+def fused_phase(km) -> dict:
+    """kmeans_assign_partials against assign_and_partials_plain at the main
+    path's split shape, a ragged shape, a shape with exact ties and the
+    edge of its range (d = 32, k = 64). Ids by the near-tie rules; counts
+    equal to the bincount of the kernel's own ids; sums within SUMS_RTOL of
+    a float64 sum over those ids; two launches bitwise equal. Times the
+    kernel, the unfused route (kmeans_assign and the one-hot partials) and the
+    plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for label, n, d, k in FUSED_SHAPES:
+        x, c, distinct = make_inputs(label, n, d, k, gen)
+        ids, sums, counts = km.kmeans_assign_partials(x, c)
+        ids2, sums2, counts2 = km.kmeans_assign_partials(x, c)
+        ref = km.assign_plain(x, c)
+        torch.cuda.synchronize()
+        cmp = compare_ids(x, c, ids, ref, distinct)
+        check_ids(f"kmeans_assign_partials {label}", cmp)
+        check_range_and_ties("kmeans_assign_partials", label, ids, ref, k)
+        check(torch.equal(ids, ids2) and torch.equal(sums, sums2) and
+              torch.equal(counts, counts2), f"kmeans_assign_partials "
+              f"{label}: two launches on one input differ")
+        check(torch.equal(counts, torch.bincount(ids, minlength=k)
+                          .to(torch.int32)) and int(counts.sum()) == n,
+              f"kmeans_assign_partials {label}: counts are not the "
+              f"bincount of its ids")
+        idx = ids.long()
+        want = torch.zeros(k, d, dtype=torch.float64, device="cuda") \
+            .index_add_(0, idx, x.double())
+        scale = torch.zeros(k, d, dtype=torch.float64, device="cuda") \
+            .index_add_(0, idx, x.double().abs())
+        sums_err = (sums.double() - want).abs()
+        check(bool((sums_err <= SUMS_RTOL * scale).all()),
+              f"kmeans_assign_partials {label}: sums off the float64 sum "
+              f"over its ids by up to "
+              f"{float((sums_err / scale.clamp_min(1e-30)).max()):.3g} "
+              f"of sum |x|")
+        bound, bound_by = fused_bound_ms(n, d, k)
+        row = {"shape": [n, d, k], **cmp,
+               "sums_max_abs_err": float(sums_err.max()),
+               "kernel_ms": time_ms(lambda: km.kmeans_assign_partials(x, c)),
+               "unfused_route_ms": time_ms(lambda: km.onehot_partials(
+                   x, km.kmeans_assign(x, c), k)),
+               "plain_ms": time_ms(
+                   lambda: km.assign_and_partials_plain(x, c)),
+               "library_ms": None,
+               "bound_ms": bound, "bound_by": bound_by}
+        log(f"kernel kmeans_assign_partials {label} " + json.dumps(row))
+        rows[label] = row
+        del x, c, ids, ids2, sums, sums2, counts, counts2, ref, want, scale
+    torch.cuda.empty_cache()
+    return rows
+
+
+def write_points(work: str, n: int, d: int = D, k: int = K,
+                 rows: int = ROWS_PER_SPLIT, seed: int = 0,
+                 prefix: str = "") -> np.ndarray:
+    """bench.py's K-Means data (for the main path: d = 16, k = 16, seed 0):
+    centroids then points from default_rng(seed), written chunked so host
+    memory stays about one split."""
+    rng = np.random.default_rng(seed)
+    cents = rng.standard_normal(size=(k, d), dtype=np.float32)
+    np.save(os.path.join(work, f"{prefix}cents.npy"), cents)
     header = np.lib.format.header_data_from_array_1_0(
-        np.empty((0, D), np.float32))
-    header["shape"] = (n, D)
-    with open(os.path.join(work, "points.npy"), "wb") as out:
+        np.empty((0, d), np.float32))
+    header["shape"] = (n, d)
+    with open(os.path.join(work, f"{prefix}points.npy"), "wb") as out:
         np.lib.format.write_array_header_1_0(out, header)
-        for lo in range(0, n, ROWS_PER_SPLIT):
-            m = min(ROWS_PER_SPLIT, n - lo)
-            out.write(rng.standard_normal(size=(m, D),
+        for lo in range(0, n, rows):
+            m = min(rows, n - lo)
+            out.write(rng.standard_normal(size=(m, d),
                                           dtype=np.float32).tobytes())
     return cents
 
 
-def job_conf(work: str, out: str, run_on_tpu_key: bool = True):
+def job_conf(work: str, out: str, run_on_tpu_key: bool = True,
+             rows: int = ROWS_PER_SPLIT, prefix: str = ""):
     from tpumr_torch.mapred.input_formats import DenseInputFormat
     from tpumr_torch.mapred.jobconf import JobConf
     from tpumr_torch.ops.kmeans import CentroidReducer
     conf = JobConf()
-    conf.set_input_paths(f"file://{work}/points.npy")
+    conf.set_input_paths(f"file://{work}/{prefix}points.npy")
     conf.set_output_path(f"file://{work}/{out}")
     conf.set_input_format(DenseInputFormat)
-    conf.set("tpumr.dense.split.rows", ROWS_PER_SPLIT)
-    conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+    conf.set("tpumr.dense.split.rows", rows)
+    conf.set("tpumr.kmeans.centroids", f"file://{work}/{prefix}cents.npy")
     conf.set_reducer_class(CentroidReducer)
     conf.set_num_reduce_tasks(1)
     # the whole 6.4 GB dataset stays resident (8% of an 80 GB card)
@@ -211,20 +310,31 @@ def job_conf(work: str, out: str, run_on_tpu_key: bool = True):
     return conf
 
 
-def read_centroids(path: str) -> np.ndarray:
+def read_centroids(path: str) -> dict:
+    """The committed centroids, cluster id -> float64 row."""
     import ast
     got = {}
     with open(path) as f:
         for line in f:
             k, v = line.rstrip("\n").split("\t")
-            got[int(k)] = ast.literal_eval(v)
-    check(sorted(got) == list(range(K)), f"committed clusters {sorted(got)}")
-    return np.array([got[i] for i in range(K)], np.float64)
+            got[int(k)] = np.array(ast.literal_eval(v), np.float64)
+    return got
+
+
+def launch_counts(km) -> dict:
+    return {"kmeans_assign_partials": km.kmeans_assign_partials.launches,
+            "kmeans_assign": km.kmeans_assign.launches}
+
+
+def zero_launch_counts(km) -> None:
+    km.kmeans_assign_partials.launches = 0
+    km.kmeans_assign.launches = 0
 
 
 def oracle(work: str, n: int, cents: np.ndarray, km) -> dict:
     """Centroids from assign_plain on the card with float64 sums, chunked;
-    on the way, kmeans_assign against assign_plain on all n points."""
+    on the way, the fused kernel's ids against assign_plain on all n
+    points."""
     pts = np.load(os.path.join(work, "points.npy"), mmap_mode="r")
     c = torch.from_numpy(cents).cuda()
     sums = torch.zeros(K, D, dtype=torch.float64, device="cuda")
@@ -234,7 +344,7 @@ def oracle(work: str, n: int, cents: np.ndarray, km) -> dict:
     for lo in range(0, n, ROWS_PER_SPLIT):
         x = torch.from_numpy(np.array(pts[lo:lo + ROWS_PER_SPLIT])).cuda()
         ref = km.assign_plain(x, c)
-        cmp = compare_ids(x, c, km.kmeans_assign(x, c), ref)
+        cmp = compare_ids(x, c, km.kmeans_assign_partials(x, c)[0], ref)
         for key in totals:
             totals[key] += cmp[key]
         onehot = torch.nn.functional.one_hot(ref.long(), K).double()
@@ -260,20 +370,21 @@ def main_path(n: int, km, profile: bool) -> dict:
         n_splits = -(-n // ROWS_PER_SPLIT)
         gpu_runner.clear_split_caches()
         jobs, outputs = [], []
-        km.kmeans_assign.launches = 0        # the main path's count starts
+        zero_launch_counts(km)               # the main path's count starts
         for i, kind in enumerate(["cold", "warm", "warm", "warm"]):
             km.clear_centroid_cache()        # as bench.py does per job
             cache = gpu_runner.split_cache(torch.device("cuda", 0),
                                            8192 << 20)
-            hits0, launches0 = cache.hits, km.kmeans_assign.launches
+            hits0, launches0 = cache.hits, launch_counts(km)
             t = time.monotonic()
             result = run_job(job_conf(work, f"out{i}"))
             secs = time.monotonic() - t
             check(result.successful, f"job {i} failed")
-            launches = km.kmeans_assign.launches - launches0
+            launches = {name: v - launches0[name]
+                        for name, v in launch_counts(km).items()}
             row = {"job": i, "kind": kind, "seconds": secs,
                    "records_per_s": n / secs, "maps": result.num_maps,
-                   "kmeans_assign_launches": launches,
+                   "launches": launches,
                    "split_cache_hits": cache.hits - hits0,
                    "bytes_staged": result.counters.value(
                        BackendCounter.GROUP,
@@ -284,8 +395,10 @@ def main_path(n: int, km, profile: bool) -> dict:
             log("job " + json.dumps(row))
             check(result.num_maps == n_splits,
                   f"job {i}: {result.num_maps} maps, expected {n_splits}")
-            check(launches == n_splits, f"job {i}: kmeans_assign launched "
-                  f"{launches} times for {n_splits} splits")
+            check(launches == {"kmeans_assign_partials": n_splits,
+                               "kmeans_assign": 0},
+                  f"job {i}: launches {launches} for {n_splits} splits; "
+                  f"expected the fused kernel once per split")
             check(row["map_input_records"] == n, f"job {i}: "
                   f"MAP_INPUT_RECORDS {row['map_input_records']} != {n}")
             check(result.counters.value(
@@ -295,7 +408,7 @@ def main_path(n: int, km, profile: bool) -> dict:
             with open(os.path.join(work, f"out{i}", "part-00000"), "rb") as f:
                 outputs.append(f.read())
         # read before the oracle's comparison launches add to the count
-        main_launches = km.kmeans_assign.launches
+        main_launches = launch_counts(km)
         check(all(o == outputs[0] for o in outputs),
               "the four jobs committed different centroids")
         default_route(work, n_splits, km, outputs[0])
@@ -303,6 +416,9 @@ def main_path(n: int, km, profile: bool) -> dict:
         t = time.monotonic()
         ref = oracle(work, n, cents, km)
         got = read_centroids(os.path.join(work, "out0", "part-00000"))
+        check(sorted(got) == list(range(K)),
+              f"committed clusters {sorted(got)}")
+        got = np.stack([got[i] for i in range(K)])
         err = np.abs(got - ref["centroids"])
         rel = float((err / np.abs(ref["centroids"])).max())
         log("oracle " + json.dumps({
@@ -310,7 +426,8 @@ def main_path(n: int, km, profile: bool) -> dict:
             "max_abs_err": float(err.max()), "max_rel_err": rel,
             "kernel_vs_plain": ref["kernel_vs_plain"],
             "counts": ref["counts"].tolist()}))
-        check_ids("on the job's points", ref["kernel_vs_plain"])
+        check_ids("kmeans_assign_partials on the job's points",
+                  ref["kernel_vs_plain"])
         check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
                           np.abs(ref["centroids"]))),
               f"committed centroids off the float64 oracle: max abs "
@@ -325,19 +442,20 @@ def main_path(n: int, km, profile: bool) -> dict:
 def default_route(work: str, n_splits: int, km, want: bytes) -> None:
     """One more warm job as a user would submit it, without
     tpumr.local.run.on.tpu: on the card every map still takes the device
-    path and launches the kernel, and none runs on the host."""
+    path and launches the fused kernel, and none runs on the host."""
     from tpumr_torch.core.counters import BackendCounter
     from tpumr_torch.mapred.local_runner import run_job
     km.clear_centroid_cache()
-    launches0 = km.kmeans_assign.launches
+    launches0 = km.kmeans_assign_partials.launches
     result = run_job(job_conf(work, "out-default", run_on_tpu_key=False))
     counts = {name: result.counters.value(BackendCounter.GROUP, name)
               for name in (BackendCounter.TPU_MAP_TASKS,
                            BackendCounter.CPU_MAP_TASKS,
                            BackendCounter.CPU_BATCH_MAP_TASKS)}
-    counts["kmeans_assign_launches"] = km.kmeans_assign.launches - launches0
+    counts["kmeans_assign_partials_launches"] = \
+        km.kmeans_assign_partials.launches - launches0
     log("default_route " + json.dumps(counts))
-    check(counts["kmeans_assign_launches"] == n_splits and
+    check(counts["kmeans_assign_partials_launches"] == n_splits and
           counts[BackendCounter.TPU_MAP_TASKS] == n_splits and
           counts[BackendCounter.CPU_MAP_TASKS] == 0 and
           counts[BackendCounter.CPU_BATCH_MAP_TASKS] == 0,
@@ -346,6 +464,70 @@ def default_route(work: str, n_splits: int, km, want: bytes) -> None:
     with open(os.path.join(work, "out-default", "part-00000"), "rb") as f:
         check(f.read() == want, "the job without tpumr.local.run.on.tpu "
               "committed other centroids")
+
+
+def second_job(km) -> dict:
+    """A job outside the fused range (JOB2_N x JOB2_D points, JOB2_K
+    centroids, splits of JOB2_ROWS): every map launches kmeans_assign and
+    the one-hot partials. Its committed centroids against a float64 oracle
+    of the means under kmeans_assign's own ids, and those ids against
+    assign_plain by the near-tie rules."""
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.local_runner import run_job
+
+    work = tempfile.mkdtemp(prefix="tpumr_torch-smoke2-")
+    try:
+        n, d, k, rows = JOB2_N, JOB2_D, JOB2_K, JOB2_ROWS
+        cents = write_points(work, n, d, k, rows, seed=2)
+        n_splits = -(-n // rows)
+        gpu_runner.clear_split_caches()
+        km.clear_centroid_cache()
+        zero_launch_counts(km)               # the second path's count starts
+        t = time.monotonic()
+        result = run_job(job_conf(work, "out", rows=rows))
+        secs = time.monotonic() - t
+        launches = launch_counts(km)
+        check(result.successful, "second job failed")
+        check(launches == {"kmeans_assign_partials": 0,
+                           "kmeans_assign": n_splits},
+              f"second job: launches {launches} for {n_splits} splits; "
+              f"expected kmeans_assign once per split")
+
+        pts = np.load(os.path.join(work, "points.npy"), mmap_mode="r")
+        c = torch.from_numpy(cents).cuda()
+        sums = torch.zeros(k, d, dtype=torch.float64, device="cuda")
+        counts = torch.zeros(k, dtype=torch.int64, device="cuda")
+        totals = {"mismatches": 0, "near_ties": 0, "unexcused": 0,
+                  "far_picks": 0}
+        for lo in range(0, n, rows):
+            x = torch.from_numpy(np.array(pts[lo:lo + rows])).cuda()
+            ids = km.kmeans_assign(x, c)
+            cmp = compare_ids(x, c, ids, km.assign_plain(x, c))
+            for key in totals:
+                totals[key] += cmp[key]
+            sums.index_add_(0, ids.long(), x.double())
+            counts += torch.bincount(ids, minlength=k)
+        check_ids("kmeans_assign on the second job's points", totals)
+        counts_h = counts.cpu().numpy()
+        want = (sums / counts.clamp_min(1)[:, None]).cpu().numpy()
+        got = read_centroids(os.path.join(work, "out", "part-00000"))
+        live = [int(j) for j in np.flatnonzero(counts_h)]
+        check(sorted(got) == live, "second job: committed clusters are not "
+              "the clusters with points")
+        got = np.stack([got[j] for j in live])
+        err = np.abs(got - want[live])
+        check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
+                          np.abs(want[live]))),
+              f"second job: committed centroids off the float64 oracle: "
+              f"max abs {err.max():.3g}")
+        row = {"shape": [n, d, k], "splits": n_splits, "seconds": secs,
+               "launches": launches, "clusters": len(live),
+               "max_abs_err": float(err.max()), "kernel_vs_plain": totals}
+        log("second_job " + json.dumps(row))
+        return row
+    finally:
+        gpu_runner.clear_split_caches()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def profile_warm_job(work: str) -> None:
@@ -412,6 +594,25 @@ def profile_host(work: str) -> None:
     log("host_profile " + json.dumps(stages))
 
 
+def log_registers(build_log: str) -> None:
+    """One line per compiled kernel from ptxas's report: its (mangled)
+    name, registers and spills."""
+    import re
+    name = spill = None
+    with open(build_log) as f:
+        for line in f:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = m.group(1)
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and name:
+                used = re.search(r"Used \d+ registers", line)
+                log(f"nvcc {name}: {used.group(0) if used else line.strip()}"
+                    f", {spill}")
+                name = None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--points", type=int, default=100_000_000,
@@ -436,22 +637,36 @@ def main() -> None:
 
     from tpumr_torch.ops import kmeans as km
     from tpumr_torch.ops import native
-    log(f"kernel build: {native.build():.3f}s (kmeans_assign)")
+    log(f"kernel build: {native.build():.3f}s ("
+        + ", ".join(os.path.basename(src) for src in native.SOURCES) + ")")
+    log_registers(native.BUILD_LOG)
 
     shapes = kernel_phase(km)
+    fused = fused_phase(km)
     main = main_path(args.points, km, args.profile)
-    m = shapes["main"]
+    job2 = second_job(km)
+    f, a = fused["main"], shapes["job2"]
     kernels = [{
+        "name": "kmeans_assign_partials", "route": "cuda",
+        "source": "tpumr_torch/csrc/kmeans_assign_partials.cu",
+        "replaces": "tpumr/ops/kmeans.py:57",
+        "launches": main["launches"]["kmeans_assign_partials"],
+        "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
+                           for r in fused.values()),
+        "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "library_ms": None, "unfused_route_ms": f["unfused_route_ms"],
+        "checked": True}, {
         "name": "kmeans_assign", "route": "cuda",
         "source": "tpumr_torch/csrc/kmeans_assign.cu",
         "replaces": "tpumr/ops/kmeans.py:57",
-        "launches": main["launches"],
+        "launches": job2["launches"]["kmeans_assign"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
-        "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
-        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-        "library_ms": m["library_ms"], "checked": True}]
+        "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": a["library_ms"], "checked": True}]
     check(all(kn["launches"] > 0 for kn in kernels),
-          "a kernel of the main path never launched")
+          "a kernel never launched on the path that drives it")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

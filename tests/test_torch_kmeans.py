@@ -6,6 +6,8 @@ itself is held against that plain version on the card by chip_smoke.py.
 Inputs come from numpy seeds and go to both packages as numpy arrays.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -177,3 +179,101 @@ def test_centroids_from_numpy_takes_read_only_state():
     np.testing.assert_array_equal(t.numpy(), cents.astype(np.float32))
     t += 1   # writable: owns its memory
     np.testing.assert_array_equal(view, cents)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("n,d,k,seed", [(257, 5, 7, 0), (300, 16, 16, 1),
+                                        (129, 32, 64, 2)])
+def test_assign_and_partials_plain_matches_jax(n, d, k, seed, use_pallas):
+    """assign_and_partials_plain (the fused kernel's plain version) against
+    tpumr.ops.kmeans.assign_and_partials, through its XLA path and through
+    the Pallas kernel in interpret mode: ids and counts equal, sums to rtol
+    1e-4 (f32 sums taken in another order)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, d)).astype(np.float32)
+    cents = rng.normal(size=(k, d)).astype(np.float32)
+    ja, js, jc = (np.asarray(x) for x in jax_assign_and_partials(
+        pts, cents, use_pallas=use_pallas, interpret=use_pallas))
+    a, s, c = tk.assign_and_partials_plain(_t(pts), _t(cents))
+    assert a.dtype == c.dtype == torch.int32 and s.dtype == torch.float32
+    np.testing.assert_array_equal(a.numpy(), ja)
+    np.testing.assert_array_equal(c.numpy(), jc)
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-4, atol=1e-6)
+    # on the CPU the fused wrapper is its plain version and launches nothing
+    launches = (tk.kmeans_assign_partials.launches,
+                tk.kmeans_assign.launches)
+    fa, fs, fc = tk.kmeans_assign_partials(_t(pts), _t(cents))
+    assert torch.equal(fa, a) and torch.equal(fs, s) and torch.equal(fc, c)
+    assert (tk.kmeans_assign_partials.launches,
+            tk.kmeans_assign.launches) == launches
+
+
+@pytest.mark.parametrize("device,d,k,want", [
+    ("cuda", 16, 16, "fused"), ("cuda", 32, 64, "fused"),
+    ("cuda", 1, 1, "fused"), ("cuda", 33, 64, "assign"),
+    ("cuda", 32, 65, "assign"), ("cuda", 40, 300, "assign"),
+    ("cpu", 16, 16, "plain"), ("cpu", 33, 65, "plain")])
+def test_route_by_shape(device, d, k, want):
+    """assign_and_partials takes the fused kernel on the card for d <= 32
+    and k <= 64, kmeans_assign and the one-hot partials for any other
+    shape, and the plain version for a CPU tensor."""
+    assert tk.route(device, d, k) == want
+
+
+def test_assign_and_partials_on_cpu_takes_the_plain_version():
+    """Out of the fused range too, a CPU tensor takes the plain version:
+    the same results, no launch counted."""
+    rng = np.random.default_rng(4)
+    pts = _t(rng.normal(size=(50, 33)))
+    cents = _t(rng.normal(size=(70, 33)))
+    launches = (tk.kmeans_assign_partials.launches,
+                tk.kmeans_assign.launches)
+    got = tk.assign_and_partials(pts, cents)
+    want = tk.assign_and_partials_plain(pts, cents)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (tk.kmeans_assign_partials.launches,
+            tk.kmeans_assign.launches) == launches
+
+
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take():
+    pts, cents = torch.zeros(4, 3), torch.zeros(2, 3)
+    with pytest.raises(TypeError):
+        tk.kmeans_assign_partials(pts.double(), cents)
+    with pytest.raises(ValueError):
+        tk.kmeans_assign_partials(pts[None], cents)          # rank 3
+    with pytest.raises(ValueError):
+        tk.kmeans_assign_partials(torch.zeros(3, 4).T, cents)  # not contiguous
+    with pytest.raises(ValueError):
+        tk.kmeans_assign_partials(torch.zeros(4, 33), torch.zeros(2, 33))
+    with pytest.raises(ValueError):
+        tk.kmeans_assign_partials(pts, torch.zeros(65, 3))
+    with pytest.raises(ValueError):
+        tk.kmeans_assign_partials(pts.to("meta"), cents.to("meta"))
+
+
+def test_native_sources_are_every_cuda_file():
+    """The one library is built from every .cu under tpumr_torch/csrc."""
+    from tpumr_torch.ops import native
+    csrc = os.path.join(os.path.dirname(native._PKG), "tpumr_torch", "csrc")
+    want = sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                  if f.endswith(".cu"))
+    assert sorted(native.SOURCES) == want
+
+
+def test_native_library_is_stale_when_any_source_is_newer(tmp_path,
+                                                          monkeypatch):
+    from tpumr_torch.ops import native
+    srcs = [tmp_path / "a.cu", tmp_path / "b.cu"]
+    lib = tmp_path / "lib.so"
+    for f in (*srcs, lib):
+        f.write_text("")
+    monkeypatch.setattr(native, "SOURCES", tuple(map(str, srcs)))
+    monkeypatch.setattr(native, "LIBRARY", str(lib))
+    os.utime(srcs[0], (100, 100))
+    os.utime(srcs[1], (100, 100))
+    os.utime(lib, (200, 200))
+    assert not native.stale()
+    os.utime(srcs[1], (300, 300))
+    assert native.stale()
+    lib.unlink()
+    assert native.stale()

@@ -1,18 +1,25 @@
 """K-Means map kernel: nearest-centroid assignment and per-cluster partial
 sums on the device.
 
-Counterpart of ``tpumr/ops/kmeans.py``. The nearest-centroid step is the
-hand-written CUDA kernel ``tpumr_torch/csrc/kmeans_assign.cu``, the port of
-the TPU kernel ``_assign_kernel`` (``pallas_assign``); :func:`kmeans_assign`
-is its wrapper and :func:`assign_plain` the same function in plain torch.
-The per-cluster sums (``one_hotᵀ @ points``) and counts stay plain torch
-ops on the card, as the JAX package computes them outside its Pallas
-kernel. A map task therefore emits k small records, and the centroid
+Counterpart of ``tpumr/ops/kmeans.py``. Two hand-written CUDA kernels port
+its TPU kernel ``_assign_kernel`` (``pallas_assign``):
+
+- ``tpumr_torch/csrc/kmeans_assign_partials.cu`` fuses the assignment with
+  the per-cluster sums and counts that ``assign_and_partials`` takes around
+  it, for d <= 32 and k <= 64 (:func:`kmeans_assign_partials`; plain
+  version :func:`assign_and_partials_plain`);
+- ``tpumr_torch/csrc/kmeans_assign.cu`` assigns only, for any other shape
+  (:func:`kmeans_assign`; plain version :func:`assign_plain`), and the sums
+  and counts are then a one-hot product and its column sums on the card.
+
+:func:`assign_and_partials` picks between them by shape alone
+(:func:`route`). A map task emits k small records, and the centroid
 all-reduce rides the shuffle.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Iterable
 
 import numpy as np
@@ -98,30 +105,129 @@ kmeans_assign.launches = 0
 assign = kmeans_assign
 
 
-def assign_and_partials(points: torch.Tensor, centroids: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(assignments [n] int32, partial sums [k, d] f32, counts [k] int32).
+#: the fused kernel's range: rows of at most this many floats ...
+FUSED_MAX_D = 32
+#: ... and at most this many centroids
+FUSED_MAX_K = 64
 
-    Counterpart of ``tpumr.ops.kmeans.assign_and_partials``. The sums are
-    one f32 product ``one_hotᵀ @ points`` and the counts the one-hot's
-    column sums. Both come out the same from run to run (no float
-    atomics), so a job's centroids are byte-identical across rounds; and
-    neither waits for the device (``torch.bincount`` on a CUDA tensor
-    reads its input's min and max on the host), so a window of launches
-    costs one synchronisation."""
-    points = points.to(torch.float32).contiguous()
-    centroids = centroids.to(torch.float32).contiguous()
-    a = kmeans_assign(points, centroids)
+
+def onehot_partials(points: torch.Tensor, a: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster sums [k, d] f32 and counts [k] int32 of ``points`` under
+    the ids ``a``: one f32 product ``one_hotᵀ @ points`` and the one-hot's
+    column sums, as ``tpumr.ops.kmeans.assign_and_partials`` takes them.
+    Both come out the same from run to run (no float atomics), and neither
+    waits for the device (``torch.bincount`` on a CUDA tensor reads its
+    input's min and max on the host)."""
     n = points.shape[0]
-    onehot = torch.zeros(n, centroids.shape[0], dtype=torch.float32,
-                         device=points.device)
+    onehot = torch.zeros(n, k, dtype=torch.float32, device=points.device)
     onehot.scatter_(1, a.long()[:, None], 1.0)
     sums = onehot.T @ points
     # exact in any order: every partial sum is an integer no larger than
     # n, and f32 holds every integer up to 2**24 (float64 beyond)
     acc = torch.float32 if n <= 2 ** 24 else torch.float64
     counts = onehot.sum(dim=0, dtype=acc).to(torch.int32)
-    return a, sums, counts
+    return sums, counts
+
+
+def assign_and_partials_plain(points: torch.Tensor, centroids: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(ids [n] int32, sums [k, d] f32, counts [k] int32) in plain torch:
+    :func:`assign_plain` and the one-hot partials. The plain version of
+    :func:`kmeans_assign_partials`."""
+    a = assign_plain(points, centroids)
+    return (a, *onehot_partials(points, a, centroids.shape[0]))
+
+
+def kmeans_assign_partials(points: torch.Tensor, centroids: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """(ids [n] int32, sums [k, d] f32, counts [k] int32) for d <= 32 and
+    k <= 64: the fused CUDA kernel for a CUDA tensor,
+    :func:`assign_and_partials_plain` for a CPU tensor. Raises outside that
+    range on either device. The sums are the same bits from launch to
+    launch. A CUDA tensor launches the kernel or raises; nothing falls
+    back."""
+    _check(points, centroids)
+    n, d = points.shape
+    k = centroids.shape[0]
+    if d > FUSED_MAX_D or k > FUSED_MAX_K:
+        raise ValueError(f"kmeans_assign_partials takes d <= {FUSED_MAX_D} "
+                         f"and k <= {FUSED_MAX_K}, got d={d}, k={k}")
+    if points.device.type == "cpu":
+        return assign_and_partials_plain(points, centroids)
+    if points.device.type != "cuda":
+        raise ValueError(f"kmeans_assign_partials runs on cuda or cpu, not "
+                         f"{points.device}")
+    if n >= 2 ** 31:
+        raise ValueError(f"kmeans_assign_partials takes n < 2**31 points, "
+                         f"got {n}")
+    dev = points.device
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    sums = torch.empty(k, d, dtype=torch.float32, device=dev)
+    counts = torch.empty(k, dtype=torch.int32, device=dev)
+    if n == 0:
+        return ids, sums.zero_(), counts.zero_()
+    lib = native.load()
+    with torch.cuda.device(dev):
+        # the grid, and so the partials' second dimension, is fixed by the
+        # shape and the card: the sums repeat bit for bit
+        blocks = ctypes.c_int(0)
+        rc = lib.kmeans_assign_partials_blocks(n, d, k, ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"kmeans_assign_partials grid: cudaError {rc}")
+        part_sums = torch.empty(k * d, blocks.value, dtype=torch.float32,
+                                device=dev)
+        part_counts = torch.empty(k, blocks.value, dtype=torch.int32,
+                                  device=dev)
+        rc = lib.kmeans_assign_partials(
+            points.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
+            part_sums.data_ptr(), part_counts.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), n, d, k, blocks.value,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kmeans_assign_partials launch failed: "
+                           f"cudaError {rc}")
+    kmeans_assign_partials.launches += 1
+    return ids, sums, counts
+
+
+#: kernel launches since the last reset (chip_smoke.py reads and zeroes it)
+kmeans_assign_partials.launches = 0
+
+
+def route(device_type: str, d: int, k: int) -> str:
+    """How :func:`assign_and_partials` computes on a device of this type at
+    row width ``d`` with ``k`` centroids, by shape alone: ``"plain"`` on the
+    CPU, ``"fused"`` (:func:`kmeans_assign_partials`) on the card for
+    d <= 32 and k <= 64, else ``"assign"`` (:func:`kmeans_assign` and the
+    one-hot partials)."""
+    if device_type == "cpu":
+        return "plain"
+    if d <= FUSED_MAX_D and k <= FUSED_MAX_K:
+        return "fused"
+    return "assign"
+
+
+def assign_and_partials(points: torch.Tensor, centroids: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(assignments [n] int32, partial sums [k, d] f32, counts [k] int32).
+
+    Counterpart of ``tpumr.ops.kmeans.assign_and_partials``, routed by
+    :func:`route`. Every route gives the same bits from run to run (no
+    float atomics), so a job's centroids are byte-identical across rounds,
+    and none waits for the device, so a window of launches costs one
+    synchronisation."""
+    points = points.to(torch.float32).contiguous()
+    centroids = centroids.to(torch.float32).contiguous()
+    how = route(points.device.type, points.shape[1], centroids.shape[0])
+    if how == "plain":
+        return assign_and_partials_plain(points, centroids)
+    if how == "fused":
+        return kmeans_assign_partials(points, centroids)
+    a = kmeans_assign(points, centroids)
+    return (a, *onehot_partials(points, a, centroids.shape[0]))
 
 
 def centroids_from_numpy(arr: np.ndarray, device: "torch.device | str"

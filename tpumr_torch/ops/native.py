@@ -1,12 +1,13 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
 No counterpart in ``tpumr/``: the JAX package's one kernel is compiled by
-Pallas inside ``pl.pallas_call``. Here it is ``tpumr_torch/csrc/
-kmeans_assign.cu`` with a plain C entry point. At first use ``nvcc`` compiles
-it for ``sm_90a`` into a shared library under ``tpumr_torch/build/`` (listed
-in ``.gitignore``), and ``ctypes`` loads it. A library newer than its source
-is reused. Nothing is built or loaded at import time: the CPU tests import
-every module of the package on a machine without ``nvcc``.
+Pallas inside ``pl.pallas_call``. Here every source under
+``tpumr_torch/csrc/`` (:data:`SOURCES`) has a plain C entry point. At first
+use one ``nvcc`` call compiles them all for ``sm_90a`` into one shared
+library under ``tpumr_torch/build/`` (listed in ``.gitignore``), and
+``ctypes`` loads it. A library newer than every source is reused. Nothing is
+built or loaded at import time: the CPU tests import every module of the
+package on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,15 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "kmeans_assign.cu")
-LIBRARY = os.path.join(_PKG, "build", "libkmeans_assign.so")
+#: every CUDA source of the port, all built into :data:`LIBRARY`
+SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
+                ("kmeans_assign.cu", "kmeans_assign_partials.cu"))
+LIBRARY = os.path.join(_PKG, "build", "libtpumr_torch_kernels.so")
+#: the compiler's output of the last build (registers, spills per kernel)
+BUILD_LOG = os.path.join(_PKG, "build", "nvcc.log")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -34,36 +39,49 @@ def _nvcc() -> str:
     found = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
              else shutil.which("nvcc"))
     if not found or not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the port's CUDA kernel is built "
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
                            "from tpumr_torch/csrc on a machine with the CUDA "
                            "toolkit (set CUDA_HOME)")
     return found
 
 
+def stale() -> bool:
+    """Whether the library is missing or older than any of its sources."""
+    if not os.path.exists(LIBRARY):
+        return True
+    built = os.path.getmtime(LIBRARY)
+    return any(os.path.getmtime(src) > built for src in SOURCES)
+
+
 def build() -> float:
-    """Compile the kernel library if it is missing or older than its
-    source. Returns the seconds it took; raises with the compiler's output
-    if the build fails."""
+    """Compile the kernel library if it is stale. Returns the seconds it
+    took; raises with the compiler's output if the build fails."""
     t0 = time.monotonic()
-    if os.path.exists(LIBRARY) and \
-            os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
+    if not stale():
         return 0.0
     os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    output = proc.stdout.decode(errors="replace")
     if proc.returncode != 0:
         raise RuntimeError(f"CUDA kernel build failed: nvcc exit "
-                           f"{proc.returncode}\n"
-                           f"{proc.stdout.decode(errors='replace')}")
+                           f"{proc.returncode}\n{output}")
+    with open(BUILD_LOG, "w") as f:
+        f.write(output)
     os.replace(tmp, LIBRARY)
     return time.monotonic() - t0
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built if stale. Its entry point
-    ``kmeans_assign(points, centroids, out, n, d, k, stream)`` returns the
-    launch's cudaError_t as an int."""
+    """The kernel library, built if stale. Each entry point returns a
+    cudaError_t as an int:
+
+    - ``kmeans_assign(points, centroids, out, n, d, k, stream)``;
+    - ``kmeans_assign_partials_blocks(n, d, k, &blocks)``;
+    - ``kmeans_assign_partials(points, centroids, ids, part_sums,
+      part_counts, sums, counts, n, d, k, blocks, stream)``.
+    """
     global _lib
     with _lock:
         if _lib is None:
@@ -72,5 +90,11 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.kmeans_assign.argtypes = [p, p, p, i, i, i, p]
             lib.kmeans_assign.restype = ctypes.c_int
+            lib.kmeans_assign_partials_blocks.argtypes = [
+                i, i, i, ctypes.POINTER(ctypes.c_int)]
+            lib.kmeans_assign_partials_blocks.restype = ctypes.c_int
+            lib.kmeans_assign_partials.argtypes = [p, p, p, p, p, p, p,
+                                                   i, i, i, i, p]
+            lib.kmeans_assign_partials.restype = ctypes.c_int
             _lib = lib
         return _lib
