@@ -6,17 +6,19 @@ Builds the port's CUDA kernels from tpumr_torch/csrc (one nvcc call) and
 holds each against its plain torch version on the card:
 kmeans_assign_partials (assignment fused with the per-cluster sums and
 counts, d <= 32 and k <= 64) against assign_and_partials_plain, and
-kmeans_assign (assignment only, every other shape) against assign_plain.
-Then it drives the port's main path: a K-Means job (100,000,000 x 16 f32
-points, k = 16, 25 dense splits of 4,000,000 rows, one reduce) through
+kmeans_assign (assignment only, every other shape, any k and d) against
+assign_plain at eight shapes. Then it drives the port's main path: a
+K-Means job (100,000,000 x 16 f32 points, k = 16, 25 dense splits of
+4,000,000 rows, one reduce) through
 tpumr_torch's LocalJobRunner, one cold run and three warm runs, then one
 more warm job submitted without tpumr.local.run.on.tpu, as a user would.
 It checks that every job launched the fused kernel once per split and
 kmeans_assign never, and committed the same centroids as an oracle computed
 here in float64. A second, smaller job whose shape lies outside the fused
 range (2,000,000 x 40 points, k = 300, 4 splits) drives kmeans_assign once
-per split, and its centroids are held against a float64 oracle too. It
-prints the last line
+per split, and its centroids are held against a float64 oracle too; so does
+a third, over the k * d cap kmeans_assign had before its redesign
+(1,000,000 x 128 points, k = 1,024, 4 splits). It prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -50,18 +52,31 @@ ROWS_PER_SPLIT = 4_000_000
 #: the second job, outside the fused kernel's range: points, d, k, rows per
 #: split
 JOB2_N, JOB2_D, JOB2_K, JOB2_ROWS = 2_000_000, 40, 300, 500_000
+#: the third job, over the k * d <= 16,384 cap that kmeans_assign had before
+#: its redesign: SIFT1M's base set (1,000,000 x 128) under FAISS's IVF1024
+#: coarse quantizer (k = 1,024), synthetic from the seed
+JOB3_N, JOB3_D, JOB3_K, JOB3_ROWS = 1_000_000, 128, 1_024, 250_000
 #: ids may differ only at a near-tie, where the two best plain distances to
 #: distinct centroids differ by less than this, relative (f32 sums in
 #: another order flip such ties); and wherever they differ, the kernel's
 #: pick must lie within this of the best plain distance
 NEAR_TIE_RTOL = 1e-5
 #: kernel-phase shapes (label, n, d, k) of kmeans_assign: the main path's
-#: split, a ragged one, exact ties, the second job's split, rows wider than
-#: 32 floats (its other branch) and its largest k (k * d = 16,384)
+#: split, a ragged one, exact ties, the second job's split, few points of
+#: 40 floats (split k), a large k over few points (split k), the third job's
+#: split (k * d = 131,072), and few centroids over wide rows (bytes bound)
 ASSIGN_SHAPES = [("main", ROWS_PER_SPLIT, D, K), ("ragged", 1_000_003, 5, 7),
                  ("ties", 1_000_000, 16, 16),
                  ("job2", JOB2_ROWS, JOB2_D, JOB2_K),
-                 ("wide", 50_000, 40, 300), ("large_k", 10_000, 1, 16_384)]
+                 ("wide", 50_000, 40, 300), ("large_k", 10_000, 1, 16_384),
+                 ("job3", JOB3_ROWS, JOB3_D, JOB3_K),
+                 ("narrow_k", 1_000_000, 64, 10)]
+#: ... where the one-hot partials that follow the kernel on a job's map are
+#: timed too
+ONEHOT_SHAPES = ("job2", "job3")
+#: checked, not timed: a point tile too wide to stay resident in shared
+#: memory (kmeans.assign_plan), a ragged last chunk of d and a ragged tile
+STREAMED_SHAPE = ("streamed", 20_003, 200, 70)
 #: ... and of kmeans_assign_partials: the main path's split, a ragged one,
 #: exact ties, and the edge of its range (d = 32, k = 64)
 FUSED_SHAPES = [("main", ROWS_PER_SPLIT, D, K), ("ragged", 1_000_003, 5, 7),
@@ -185,31 +200,46 @@ def check_range_and_ties(name: str, label: str, ids, ref, k: int) -> None:
 
 
 def kernel_phase(km) -> dict:
-    """kmeans_assign against assign_plain at the main path's split shape, a
-    ragged shape, a shape with exact ties, the second job's split shape
-    (outside the fused range, where the job launches it), and off the main
-    path a shape with rows wider than 32 floats (the kernel's other branch)
-    and one at its largest k."""
+    """kmeans_assign against assign_plain at every shape of ASSIGN_SHAPES
+    (ids by the near-tie rules, two launches bitwise equal), with the plan
+    it launched (kmeans.assign_plan) and its time beside the bound, the plain
+    version and torch.cdist(x, c).argmin(1); at the jobs' splits
+    (ONEHOT_SHAPES) also the one-hot partials that follow it on a map. The
+    same checks, untimed, at STREAMED_SHAPE."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
-    for label, n, d, k in ASSIGN_SHAPES:
+    for label, n, d, k in [*ASSIGN_SHAPES, STREAMED_SHAPE]:
         x, c, distinct = make_inputs(label, n, d, k, gen)
         ids = km.kmeans_assign(x, c)
+        ids2 = km.kmeans_assign(x, c)
         ref = km.assign_plain(x, c)
         torch.cuda.synchronize()
         cmp = compare_ids(x, c, ids, ref, distinct)
         check_ids(f"kmeans_assign {label}", cmp)
         check_range_and_ties("kmeans_assign", label, ids, ref, k)
-        bound, bound_by = assign_bound_ms(n, d, k)
+        check(torch.equal(ids, ids2), f"kmeans_assign {label}: two launches "
+              f"on one input differ")
+        plan = km.assign_plan(n, d, k, sms)
         row = {"shape": [n, d, k], **cmp,
-               "kernel_ms": time_ms(lambda: km.kmeans_assign(x, c)),
-               "plain_ms": time_ms(lambda: km.assign_plain(x, c)),
-               "library_ms": time_ms(
-                   lambda: torch.cdist(x, c).argmin(dim=1)),
-               "bound_ms": bound, "bound_by": bound_by}
+               "plan": {"bn": plan.bn, "bm": plan.bm, "splits": plan.splits,
+                        "resident": plan.resident}}
+        if label == STREAMED_SHAPE[0]:
+            check(not plan.resident, "the streamed shape's plan keeps its "
+                  "point tile resident")
+            log(f"check kmeans_assign {label} " + json.dumps(row))
+            continue
+        bound, bound_by = assign_bound_ms(n, d, k)
+        row |= {"kernel_ms": time_ms(lambda: km.kmeans_assign(x, c)),
+                "plain_ms": time_ms(lambda: km.assign_plain(x, c)),
+                "library_ms": time_ms(
+                    lambda: torch.cdist(x, c).argmin(dim=1)),
+                "bound_ms": bound, "bound_by": bound_by}
+        if label in ONEHOT_SHAPES:
+            row["onehot_ms"] = time_ms(lambda: km.onehot_partials(x, ids, k))
         log(f"kernel kmeans_assign {label} " + json.dumps(row))
         rows[label] = row
-        del x, c, ids, ref
+        del x, c, ids, ids2, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -468,29 +498,43 @@ def default_route(work: str, n_splits: int, km, want: bytes) -> None:
 
 def second_job(km) -> dict:
     """A job outside the fused range (JOB2_N x JOB2_D points, JOB2_K
-    centroids, splits of JOB2_ROWS): every map launches kmeans_assign and
+    centroids, splits of JOB2_ROWS, seed 2), through :func:`outside_job`."""
+    return outside_job(km, "second_job", JOB2_N, JOB2_D, JOB2_K, JOB2_ROWS,
+                       seed=2)
+
+
+def third_job(km) -> dict:
+    """A job over the k * d cap that kmeans_assign had before its redesign
+    (JOB3_N x JOB3_D points, JOB3_K centroids, splits of JOB3_ROWS, seed 3),
+    through :func:`outside_job`."""
+    return outside_job(km, "third_job", JOB3_N, JOB3_D, JOB3_K, JOB3_ROWS,
+                       seed=3)
+
+
+def outside_job(km, label: str, n: int, d: int, k: int, rows: int,
+                seed: int) -> dict:
+    """A job outside the fused range: every map launches kmeans_assign and
     the one-hot partials. Its committed centroids against a float64 oracle
     of the means under kmeans_assign's own ids, and those ids against
     assign_plain by the near-tie rules."""
     from tpumr_torch.mapred import gpu_runner
     from tpumr_torch.mapred.local_runner import run_job
 
-    work = tempfile.mkdtemp(prefix="tpumr_torch-smoke2-")
+    work = tempfile.mkdtemp(prefix=f"tpumr_torch-{label}-")
     try:
-        n, d, k, rows = JOB2_N, JOB2_D, JOB2_K, JOB2_ROWS
-        cents = write_points(work, n, d, k, rows, seed=2)
+        cents = write_points(work, n, d, k, rows, seed=seed)
         n_splits = -(-n // rows)
         gpu_runner.clear_split_caches()
         km.clear_centroid_cache()
-        zero_launch_counts(km)               # the second path's count starts
+        zero_launch_counts(km)               # this path's count starts
         t = time.monotonic()
         result = run_job(job_conf(work, "out", rows=rows))
         secs = time.monotonic() - t
         launches = launch_counts(km)
-        check(result.successful, "second job failed")
+        check(result.successful, f"{label} failed")
         check(launches == {"kmeans_assign_partials": 0,
                            "kmeans_assign": n_splits},
-              f"second job: launches {launches} for {n_splits} splits; "
+              f"{label}: launches {launches} for {n_splits} splits; "
               f"expected kmeans_assign once per split")
 
         pts = np.load(os.path.join(work, "points.npy"), mmap_mode="r")
@@ -507,23 +551,23 @@ def second_job(km) -> dict:
                 totals[key] += cmp[key]
             sums.index_add_(0, ids.long(), x.double())
             counts += torch.bincount(ids, minlength=k)
-        check_ids("kmeans_assign on the second job's points", totals)
+        check_ids(f"kmeans_assign on the {label} points", totals)
         counts_h = counts.cpu().numpy()
         want = (sums / counts.clamp_min(1)[:, None]).cpu().numpy()
         got = read_centroids(os.path.join(work, "out", "part-00000"))
         live = [int(j) for j in np.flatnonzero(counts_h)]
-        check(sorted(got) == live, "second job: committed clusters are not "
-              "the clusters with points")
+        check(sorted(got) == live, f"{label}: committed clusters are not "
+              f"the clusters with points")
         got = np.stack([got[j] for j in live])
         err = np.abs(got - want[live])
         check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
                           np.abs(want[live]))),
-              f"second job: committed centroids off the float64 oracle: "
+              f"{label}: committed centroids off the float64 oracle: "
               f"max abs {err.max():.3g}")
         row = {"shape": [n, d, k], "splits": n_splits, "seconds": secs,
                "launches": launches, "clusters": len(live),
                "max_abs_err": float(err.max()), "kernel_vs_plain": totals}
-        log("second_job " + json.dumps(row))
+        log(f"{label} " + json.dumps(row))
         return row
     finally:
         gpu_runner.clear_split_caches()
@@ -645,6 +689,7 @@ def main() -> None:
     fused = fused_phase(km)
     main = main_path(args.points, km, args.profile)
     job2 = second_job(km)
+    job3 = third_job(km)
     f, a = fused["main"], shapes["job2"]
     kernels = [{
         "name": "kmeans_assign_partials", "route": "cuda",
@@ -660,7 +705,8 @@ def main() -> None:
         "name": "kmeans_assign", "route": "cuda",
         "source": "tpumr_torch/csrc/kmeans_assign.cu",
         "replaces": "tpumr/ops/kmeans.py:57",
-        "launches": job2["launches"]["kmeans_assign"],
+        "launches": job2["launches"]["kmeans_assign"]
+        + job3["launches"]["kmeans_assign"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
         "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],

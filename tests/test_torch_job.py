@@ -47,6 +47,14 @@ def _wide():
             rng.standard_normal((16, 16), dtype=np.float32), 400)
 
 
+def _over_cap():
+    """600 x 130 points, k = 130, 3 splits: k * d = 16,900, over the
+    k * d <= 16,384 cap kmeans_assign once had on the card."""
+    rng = np.random.default_rng(6)
+    return (rng.standard_normal((600, 130), dtype=np.float32),
+            rng.standard_normal((130, 130), dtype=np.float32), 200)
+
+
 def _write_inputs(tmp_path, pts, cents):
     np.save(tmp_path / "points.npy", pts)
     np.save(tmp_path / "cents.npy", cents)
@@ -126,9 +134,11 @@ _SAME = [(TaskCounter.FRAMEWORK_GROUP, n) for n in (
     ("wide", None, {}),
     ("wide", None, {"tpumr.tpu.pipeline.window": 2}),
     ("wide", None, {"tpumr.tpu.pipeline.window": 0}),   # per-task path
+    ("over_cap", "cpu", {}),
 ])
 def test_kmeans_job_matches_jax_job(tmp_path, case, device, keys):
-    pts, cents, rows = {"blobs": _blobs, "wide": _wide}[case]()
+    pts, cents, rows = {"blobs": _blobs, "wide": _wide,
+                        "over_cap": _over_cap}[case]()
     _write_inputs(tmp_path, pts, cents)
     jres, want = _jax_job(tmp_path, rows, **keys)
     res, got = _port_job(tmp_path, rows, device=device, **keys)

@@ -183,12 +183,13 @@ def test_centroids_from_numpy_takes_read_only_state():
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("n,d,k,seed", [(257, 5, 7, 0), (300, 16, 16, 1),
-                                        (129, 32, 64, 2)])
+                                        (129, 32, 64, 2), (257, 130, 131, 3)])
 def test_assign_and_partials_plain_matches_jax(n, d, k, seed, use_pallas):
     """assign_and_partials_plain (the fused kernel's plain version) against
     tpumr.ops.kmeans.assign_and_partials, through its XLA path and through
     the Pallas kernel in interpret mode: ids and counts equal, sums to rtol
-    1e-4 (f32 sums taken in another order)."""
+    1e-4 (f32 sums taken in another order). The last case lies outside the
+    fused range and over the k*d <= 16,384 cap kmeans_assign once had."""
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(n, d)).astype(np.float32)
     cents = rng.normal(size=(k, d)).astype(np.float32)
@@ -199,11 +200,16 @@ def test_assign_and_partials_plain_matches_jax(n, d, k, seed, use_pallas):
     np.testing.assert_array_equal(a.numpy(), ja)
     np.testing.assert_array_equal(c.numpy(), jc)
     np.testing.assert_allclose(s.numpy(), js, rtol=1e-4, atol=1e-6)
-    # on the CPU the fused wrapper is its plain version and launches nothing
+    # on the CPU the routed entry and, inside its range, the fused wrapper
+    # are the plain version and launch nothing
     launches = (tk.kmeans_assign_partials.launches,
                 tk.kmeans_assign.launches)
-    fa, fs, fc = tk.kmeans_assign_partials(_t(pts), _t(cents))
-    assert torch.equal(fa, a) and torch.equal(fs, s) and torch.equal(fc, c)
+    ra, rs, rc = tk.assign_and_partials(_t(pts), _t(cents))
+    assert torch.equal(ra, a) and torch.equal(rs, s) and torch.equal(rc, c)
+    if d <= tk.FUSED_MAX_D and k <= tk.FUSED_MAX_K:
+        fa, fs, fc = tk.kmeans_assign_partials(_t(pts), _t(cents))
+        assert torch.equal(fa, a) and torch.equal(fs, s) and \
+            torch.equal(fc, c)
     assert (tk.kmeans_assign_partials.launches,
             tk.kmeans_assign.launches) == launches
 
@@ -218,6 +224,57 @@ def test_route_by_shape(device, d, k, want):
     and k <= 64, kmeans_assign and the one-hot partials for any other
     shape, and the plain version for a CPU tensor."""
     assert tk.route(device, d, k) == want
+
+
+#: (n, d, k) of chip_smoke.py's kmeans_assign shapes, and wider ones
+_PLAN_SHAPES = [(4_000_000, 16, 16), (1_000_003, 5, 7), (1_000_000, 16, 16),
+                (500_000, 40, 300), (50_000, 40, 300), (10_000, 1, 16_384),
+                (250_000, 128, 1_024), (1_000_000, 64, 10),
+                (20_003, 200, 70), (257, 130, 131), (1, 1, 1),
+                (3, 4096, 1 << 20)]
+
+
+@pytest.mark.parametrize("n,d,k", _PLAN_SHAPES)
+def test_assign_plan_cuts_k_into_parts_that_cover_it(n, d, k):
+    """kmeans_assign's plan for any k and d (no k*d cap): the same plan for
+    the same (n, d, k, sm_count), a grid of ceil(n / bm) row blocks by
+    `splits` parts, and parts that cover [0, k) in order without overlap,
+    each a whole number of tiles but the last."""
+    plan = tk.assign_plan(n, d, k, 132)
+    assert plan == tk.assign_plan(n, d, k, 132)
+    assert plan.grid == (-(-n // plan.bm), plan.splits)
+    assert len(plan.parts) == plan.splits >= 1
+    lo = 0
+    for part_lo, part_hi in plan.parts:
+        assert part_lo == lo < part_hi and part_lo % plan.bn == 0
+        lo = part_hi
+    assert lo == k
+    assert (plan.bn, plan.bm) in tk.ASSIGN_TILES
+
+
+def test_assign_plan_depends_on_the_shape_and_the_card_alone():
+    """The plan takes (n, d, k, sm_count) and nothing else, and a split k
+    appears only where the row blocks cannot fill the card: at chip_smoke's
+    large_k shape on 132 SMs it splits, with more SMs it splits further,
+    and at the second job's split it does not."""
+    import inspect
+    assert list(inspect.signature(tk.assign_plan).parameters) == \
+        ["n", "d", "k", "sm_count"]
+    large_k = tk.assign_plan(10_000, 1, 16_384, 132)
+    assert large_k.splits > 1 and large_k.grid[0] * large_k.splits >= \
+        tk.ASSIGN_BLOCKS_PER_SM * 132
+    assert tk.assign_plan(10_000, 1, 16_384, 264).splits > large_k.splits
+    assert tk.assign_plan(500_000, 40, 300, 132).splits == 1
+    # k = 10 and 16 take the 16-wide tile, k = 300 five tiles of 64
+    assert tk.assign_plan(1_000_000, 64, 10, 132).bn == 16
+    assert tk.assign_plan(4_000_000, 16, 16, 132).bn == 16
+    assert tk.assign_plan(500_000, 40, 300, 132).bn == 64
+    assert tk.assign_plan(250_000, 128, 1_024, 132).bn == 128
+    # the point tile stays resident while it fits, and streams past that
+    assert tk.assign_plan(250_000, 128, 1_024, 132).resident
+    assert not tk.assign_plan(20_003, 200, 70, 132).resident
+    with pytest.raises(ValueError):
+        tk.assign_plan(0, 4, 4, 132)
 
 
 def test_assign_and_partials_on_cpu_takes_the_plain_version():

@@ -9,8 +9,9 @@ its TPU kernel ``_assign_kernel`` (``pallas_assign``):
   it, for d <= 32 and k <= 64 (:func:`kmeans_assign_partials`; plain
   version :func:`assign_and_partials_plain`);
 - ``tpumr_torch/csrc/kmeans_assign.cu`` assigns only, for any other shape
-  (:func:`kmeans_assign`; plain version :func:`assign_plain`), and the sums
-  and counts are then a one-hot product and its column sums on the card.
+  and any k and d (:func:`kmeans_assign`, launched as :func:`assign_plan`
+  says; plain version :func:`assign_plain`), and the sums and counts are
+  then a one-hot product and its column sums on the card.
 
 :func:`assign_and_partials` picks between them by shape alone
 (:func:`route`). A map task emits k small records, and the centroid
@@ -20,7 +21,8 @@ all-reduce rides the shuffle.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Iterable
+import functools
+from typing import Any, Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -35,9 +37,52 @@ from tpumr_torch.ops.registry import KernelMapper, register_kernel
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-#: the kernel stages every centroid in shared memory: k*d floats at most
-#: (64 KB; the launch opts into more than 48 KB of dynamic shared memory)
-MAX_CENTROID_FLOATS = 16384
+#: kmeans_assign's tile instances (BN centroids, BM points): up to k = 64
+#: the narrowest that holds every centroid, past it 64 or 128, whichever pads
+#: k less (ties to 128)
+ASSIGN_TILES = ((16, 256), (32, 256), (64, 256), (128, 128))
+#: a block's point tile stays resident in shared memory up to this many
+#: bytes (two blocks of 128 points at d = 128 fit on an SM with their rings)
+ASSIGN_RESIDENT_BYTES = 72 * 1024
+#: split k when the row blocks alone give fewer than this many blocks per SM
+ASSIGN_BLOCKS_PER_SM = 4
+
+
+class AssignPlan(NamedTuple):
+    """How :func:`kmeans_assign` launches for one shape on one card."""
+    bm: int            #: points per block
+    bn: int            #: centroids per tile
+    splits: int        #: parts of split k (the grid's second dimension)
+    resident: bool     #: whether a block keeps its point tile in shared memory
+    grid: tuple[int, int]
+    parts: tuple[tuple[int, int], ...]   #: each part's centroids [lo, hi)
+
+
+def assign_plan(n: int, d: int, k: int, sm_count: int) -> AssignPlan:
+    """The launch of :func:`kmeans_assign` for n points of width d, k
+    centroids and a card of ``sm_count`` SMs. It depends on these alone, so
+    ids repeat bit for bit from launch to launch. The kernel cuts the
+    centroid tiles into the same parts (``assign_tiles_kernel``)."""
+    if min(n, d, k, sm_count) < 1:
+        raise ValueError(f"assign_plan takes n, d, k, sm_count >= 1, got "
+                         f"{n}, {d}, {k}, {sm_count}")
+    bn, bm = min(((bn, bm) for bn, bm in ASSIGN_TILES if bn >= min(k, 64)),
+                 key=lambda t: (-(-k // t[0]) * t[0], -t[0]))
+    d4 = -(-d // 4) * 4
+    stride = d4 if (d4 // 4) % 2 else d4 + 4   # odd 16-byte units
+    rows, tiles = -(-n // bm), -(-k // bn)
+    want = ASSIGN_BLOCKS_PER_SM * sm_count
+    splits = 1 if rows >= want else min(tiles, -(-want // rows), 65535)
+    parts = tuple((s * tiles // splits * bn,
+                   min((s + 1) * tiles // splits * bn, k))
+                  for s in range(splits))
+    resident = bm * stride * 4 <= ASSIGN_RESIDENT_BYTES
+    return AssignPlan(bm, bn, splits, resident, (rows, splits), parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def assign_plain(points: torch.Tensor, centroids: torch.Tensor
@@ -68,9 +113,9 @@ def _check(points: torch.Tensor, centroids: torch.Tensor) -> None:
 
 def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor
                   ) -> torch.Tensor:
-    """Cluster id (int32 ``[n]``) of every point: the CUDA kernel for a
-    CUDA tensor, :func:`assign_plain` for a CPU tensor. A CUDA tensor
-    launches the kernel or raises; nothing falls back."""
+    """Cluster id (int32 ``[n]``) of every point, for any k and d: the CUDA
+    kernel for a CUDA tensor, :func:`assign_plain` for a CPU tensor. A CUDA
+    tensor launches the kernel or raises; nothing falls back."""
     _check(points, centroids)
     if points.device.type == "cpu":
         return assign_plain(points, centroids)
@@ -79,19 +124,28 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor
                          f"{points.device}")
     n, d = points.shape
     k = centroids.shape[0]
-    if k * d > MAX_CENTROID_FLOATS:
-        raise ValueError(f"kmeans_assign takes k*d <= {MAX_CENTROID_FLOATS} "
-                         f"centroid floats, got k={k}, d={d}")
     if n >= 2 ** 31:
         raise ValueError(f"kmeans_assign takes n < 2**31 points, got {n}")
-    out = torch.empty(n, dtype=torch.int32, device=points.device)
+    dev = points.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     lib = native.load()
-    with torch.cuda.device(points.device):
-        rc = lib.kmeans_assign(points.data_ptr(), centroids.data_ptr(),
-                               out.data_ptr(), n, d, k,
-                               torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        plan = assign_plan(n, d, k, _sm_count(dev))
+        c2 = torch.empty(k, dtype=torch.float32, device=dev)
+        part_d2 = part_j = None
+        if plan.splits > 1:
+            part_d2 = torch.empty(plan.splits, n, dtype=torch.float32,
+                                  device=dev)
+            part_j = torch.empty(plan.splits, n, dtype=torch.int32,
+                                 device=dev)
+        rc = lib.kmeans_assign(
+            points.data_ptr(), centroids.data_ptr(), c2.data_ptr(),
+            None if part_d2 is None else part_d2.data_ptr(),
+            None if part_j is None else part_j.data_ptr(), out.data_ptr(),
+            n, d, k, plan.bn, plan.splits, int(plan.resident),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kmeans_assign launch failed: cudaError {rc}")
     kmeans_assign.launches += 1

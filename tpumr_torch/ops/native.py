@@ -77,7 +77,8 @@ def load() -> ctypes.CDLL:
     """The kernel library, built if stale. Each entry point returns a
     cudaError_t as an int:
 
-    - ``kmeans_assign(points, centroids, out, n, d, k, stream)``;
+    - ``kmeans_assign(points, centroids, c2, part_d2, part_j, out, n, d,
+      k, bn, splits, resident, stream)``;
     - ``kmeans_assign_partials_blocks(n, d, k, &blocks)``;
     - ``kmeans_assign_partials(points, centroids, ids, part_sums,
       part_counts, sums, counts, n, d, k, blocks, stream)``.
@@ -88,7 +89,8 @@ def load() -> ctypes.CDLL:
             build()
             lib = ctypes.CDLL(LIBRARY)
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.kmeans_assign.argtypes = [p, p, p, i, i, i, p]
+            lib.kmeans_assign.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                          i, p]
             lib.kmeans_assign.restype = ctypes.c_int
             lib.kmeans_assign_partials_blocks.argtypes = [
                 i, i, i, ctypes.POINTER(ctypes.c_int)]
