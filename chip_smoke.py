@@ -18,7 +18,21 @@ here in float64. A second, smaller job whose shape lies outside the fused
 range (2,000,000 x 40 points, k = 300, 4 splits) drives kmeans_assign once
 per split, and its centroids are held against a float64 oracle too; so does
 a third, over the k * d cap kmeans_assign had before its redesign
-(1,000,000 x 128 points, k = 1,024, 4 splits). It prints the last line
+(1,000,000 x 128 points, k = 1,024, 4 splits).
+
+Two more paths follow. Rounds: ten rounds of iterative K-Means over the
+main path's points and resident splits, through expand_round and
+KMeansCentroidUpdateReducer with a centroid file of its own per round
+(cents-r{round}.npy); each round stages nothing, uploads no centroids after
+round 0 (the reducer pre-seeds the next round's on the card) and launches
+the fused kernel once per split; rounds 0 and 9 are held against a float64
+Lloyd step. The same ten rounds again with the caches cleared before each
+round must give byte-identical centroids, and the examples kmeans program
+(python -m tpumr_torch.cli examples kmeans, in a process of its own) must
+give round 3's centroids exactly. Matmul: the map-only blocked product of
+two 4,096 x 4,096 f32 matrices (4 maps) in f32 and in bf16 with f32 output,
+each against a float64 product, and a chain job D = C @ B that reads C from
+the card (0 bytes staged). It prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -87,6 +101,23 @@ FUSED_SHAPES = [("main", ROWS_PER_SPLIT, D, K), ("ragged", 1_000_003, 5, 7),
 #: |x| / count (about 1e-6 at this size), which no rtol covers for a
 #: coordinate whose mean is near 0
 CENTROID_RTOL, CENTROID_ATOL = 1e-4, 1e-5
+#: rounds of iterative K-Means (bench.py's count) in each of the versioned
+#: and the sequential runs, and the examples kmeans program's iterations
+ROUNDS, CLI_ITERATIONS = 10, 3
+#: the matmul job (bench.py:655-705): A and B n x n f32 from default_rng(2),
+#: splits of MM_ROWS rows (4 maps)
+MM_N, MM_ROWS = 4096, 1024
+#: |C - C64| <= MM_ERR * (|A| . |B|) elementwise. An f32 dot of n terms is
+#: off the exact one by at most about n * 2**-24 (2.4e-4 at n = 4,096) of
+#: sum |a||b|, and typically by sqrt(n) * 2**-24 (3.8e-6) of it, since the
+#: roundings are independent; 1e-5 sits between. bf16 products are held
+#: against the float64 product of the bf16-rounded operands: a product of
+#: two bf16 values is exact in f32, so only the accumulation errs. The
+#: chain's D is held against (A @ B) @ B by the same rule with
+#: (|A| . |B|) . |B|, which also covers C's own error carried through.
+MM_ERR = 1e-5
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W), FLOP/s
+PEAK_BF16_FLOP_PER_S = 989e12
 #: the fused kernel's sums against a float64 sum over its own ids: within
 #: this times the sum of |x| of the cluster's points, per dimension (f32
 #: sums of at most a few thousand terms in a row, then in order)
@@ -361,10 +392,12 @@ def zero_launch_counts(km) -> None:
     km.kmeans_assign.launches = 0
 
 
-def oracle(work: str, n: int, cents: np.ndarray, km) -> dict:
-    """Centroids from assign_plain on the card with float64 sums, chunked;
-    on the way, the fused kernel's ids against assign_plain on all n
-    points."""
+def oracle(work: str, n: int, cents: np.ndarray, km,
+           compare: bool = True) -> dict:
+    """One float64 Lloyd step from ``cents``: the means under assign_plain's
+    ids on the card, with float64 sums, chunked (a cluster without points
+    keeps its centroid). With ``compare``, on the way, the fused kernel's
+    ids against assign_plain on all n points."""
     pts = np.load(os.path.join(work, "points.npy"), mmap_mode="r")
     c = torch.from_numpy(cents).cuda()
     sums = torch.zeros(K, D, dtype=torch.float64, device="cuda")
@@ -374,99 +407,99 @@ def oracle(work: str, n: int, cents: np.ndarray, km) -> dict:
     for lo in range(0, n, ROWS_PER_SPLIT):
         x = torch.from_numpy(np.array(pts[lo:lo + ROWS_PER_SPLIT])).cuda()
         ref = km.assign_plain(x, c)
-        cmp = compare_ids(x, c, km.kmeans_assign_partials(x, c)[0], ref)
-        for key in totals:
-            totals[key] += cmp[key]
+        if compare:
+            cmp = compare_ids(x, c, km.kmeans_assign_partials(x, c)[0], ref)
+            for key in totals:
+                totals[key] += cmp[key]
         onehot = torch.nn.functional.one_hot(ref.long(), K).double()
         sums += onehot.T @ x.double()
         counts += torch.bincount(ref, minlength=K)
     counts_h = counts.cpu().numpy()
     check(int(counts_h.sum()) == n, f"oracle counted {counts_h.sum()} of {n}")
-    return {"centroids": (sums / counts[:, None]).cpu().numpy(),
+    means = (sums / counts.clamp_min(1)[:, None]).cpu().numpy()
+    return {"centroids": np.where(counts_h[:, None] > 0, means, cents),
             "counts": counts_h, "kernel_vs_plain": totals}
 
 
-def main_path(n: int, km, profile: bool) -> dict:
+def main_path(work: str, n: int, km, profile: bool) -> dict:
+    """The main path's points written to ``work``, where they stay for the
+    rounds, and its jobs: cold, three warm, the default route."""
     from tpumr_torch.mapred import gpu_runner
     from tpumr_torch.mapred.local_runner import run_job
     from tpumr_torch.core.counters import BackendCounter, TaskCounter
 
-    work = tempfile.mkdtemp(prefix="tpumr_torch-smoke-")
-    try:
-        t0 = time.monotonic()
-        cents = write_points(work, n)
-        log(f"data: {n} x {D} f32 points written in "
-            f"{time.monotonic() - t0:.3f}s")
-        n_splits = -(-n // ROWS_PER_SPLIT)
-        gpu_runner.clear_split_caches()
-        jobs, outputs = [], []
-        zero_launch_counts(km)               # the main path's count starts
-        for i, kind in enumerate(["cold", "warm", "warm", "warm"]):
-            km.clear_centroid_cache()        # as bench.py does per job
-            cache = gpu_runner.split_cache(torch.device("cuda", 0),
-                                           8192 << 20)
-            hits0, launches0 = cache.hits, launch_counts(km)
-            t = time.monotonic()
-            result = run_job(job_conf(work, f"out{i}"))
-            secs = time.monotonic() - t
-            check(result.successful, f"job {i} failed")
-            launches = {name: v - launches0[name]
-                        for name, v in launch_counts(km).items()}
-            row = {"job": i, "kind": kind, "seconds": secs,
-                   "records_per_s": n / secs, "maps": result.num_maps,
-                   "launches": launches,
-                   "split_cache_hits": cache.hits - hits0,
-                   "bytes_staged": result.counters.value(
-                       BackendCounter.GROUP,
-                       BackendCounter.TPU_DEVICE_BYTES_STAGED),
-                   "map_input_records": result.counters.value(
-                       TaskCounter.FRAMEWORK_GROUP,
-                       TaskCounter.MAP_INPUT_RECORDS)}
-            log("job " + json.dumps(row))
-            check(result.num_maps == n_splits,
-                  f"job {i}: {result.num_maps} maps, expected {n_splits}")
-            check(launches == {"kmeans_assign_partials": n_splits,
-                               "kmeans_assign": 0},
-                  f"job {i}: launches {launches} for {n_splits} splits; "
-                  f"expected the fused kernel once per split")
-            check(row["map_input_records"] == n, f"job {i}: "
-                  f"MAP_INPUT_RECORDS {row['map_input_records']} != {n}")
-            check(result.counters.value(
-                BackendCounter.GROUP, BackendCounter.TPU_MAP_TASKS)
-                == n_splits, f"job {i}: not every map ran on the device")
-            jobs.append(row)
-            with open(os.path.join(work, f"out{i}", "part-00000"), "rb") as f:
-                outputs.append(f.read())
-        # read before the oracle's comparison launches add to the count
-        main_launches = launch_counts(km)
-        check(all(o == outputs[0] for o in outputs),
-              "the four jobs committed different centroids")
-        default_route(work, n_splits, km, outputs[0])
-
+    t0 = time.monotonic()
+    cents = write_points(work, n)
+    log(f"data: {n} x {D} f32 points written in "
+        f"{time.monotonic() - t0:.3f}s")
+    n_splits = -(-n // ROWS_PER_SPLIT)
+    gpu_runner.clear_split_caches()
+    jobs, outputs = [], []
+    zero_launch_counts(km)               # the main path's count starts
+    for i, kind in enumerate(["cold", "warm", "warm", "warm"]):
+        km.clear_centroid_cache()        # as bench.py does per job
+        cache = gpu_runner.split_cache(torch.device("cuda", 0),
+                                       8192 << 20)
+        hits0, launches0 = cache.hits, launch_counts(km)
         t = time.monotonic()
-        ref = oracle(work, n, cents, km)
-        got = read_centroids(os.path.join(work, "out0", "part-00000"))
-        check(sorted(got) == list(range(K)),
-              f"committed clusters {sorted(got)}")
-        got = np.stack([got[i] for i in range(K)])
-        err = np.abs(got - ref["centroids"])
-        rel = float((err / np.abs(ref["centroids"])).max())
-        log("oracle " + json.dumps({
-            "seconds": time.monotonic() - t,
-            "max_abs_err": float(err.max()), "max_rel_err": rel,
-            "kernel_vs_plain": ref["kernel_vs_plain"],
-            "counts": ref["counts"].tolist()}))
-        check_ids("kmeans_assign_partials on the job's points",
-                  ref["kernel_vs_plain"])
-        check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
-                          np.abs(ref["centroids"]))),
-              f"committed centroids off the float64 oracle: max abs "
-              f"{err.max():.3g}, max rel {rel:.3g}")
-        if profile:
-            profile_warm_job(work)
-        return {"jobs": jobs, "launches": main_launches}
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        result = run_job(job_conf(work, f"out{i}"))
+        secs = time.monotonic() - t
+        check(result.successful, f"job {i} failed")
+        launches = {name: v - launches0[name]
+                    for name, v in launch_counts(km).items()}
+        row = {"job": i, "kind": kind, "seconds": secs,
+               "records_per_s": n / secs, "maps": result.num_maps,
+               "launches": launches,
+               "split_cache_hits": cache.hits - hits0,
+               "bytes_staged": result.counters.value(
+                   BackendCounter.GROUP,
+                   BackendCounter.TPU_DEVICE_BYTES_STAGED),
+               "map_input_records": result.counters.value(
+                   TaskCounter.FRAMEWORK_GROUP,
+                   TaskCounter.MAP_INPUT_RECORDS)}
+        log("job " + json.dumps(row))
+        check(result.num_maps == n_splits,
+              f"job {i}: {result.num_maps} maps, expected {n_splits}")
+        check(launches == {"kmeans_assign_partials": n_splits,
+                           "kmeans_assign": 0},
+              f"job {i}: launches {launches} for {n_splits} splits; "
+              f"expected the fused kernel once per split")
+        check(row["map_input_records"] == n, f"job {i}: "
+              f"MAP_INPUT_RECORDS {row['map_input_records']} != {n}")
+        check(result.counters.value(
+            BackendCounter.GROUP, BackendCounter.TPU_MAP_TASKS)
+            == n_splits, f"job {i}: not every map ran on the device")
+        jobs.append(row)
+        with open(os.path.join(work, f"out{i}", "part-00000"), "rb") as f:
+            outputs.append(f.read())
+    # read before the oracle's comparison launches add to the count
+    main_launches = launch_counts(km)
+    check(all(o == outputs[0] for o in outputs),
+          "the four jobs committed different centroids")
+    default_route(work, n_splits, km, outputs[0])
+
+    t = time.monotonic()
+    ref = oracle(work, n, cents, km)
+    got = read_centroids(os.path.join(work, "out0", "part-00000"))
+    check(sorted(got) == list(range(K)),
+          f"committed clusters {sorted(got)}")
+    got = np.stack([got[i] for i in range(K)])
+    err = np.abs(got - ref["centroids"])
+    rel = float((err / np.abs(ref["centroids"])).max())
+    log("oracle " + json.dumps({
+        "seconds": time.monotonic() - t,
+        "max_abs_err": float(err.max()), "max_rel_err": rel,
+        "kernel_vs_plain": ref["kernel_vs_plain"],
+        "counts": ref["counts"].tolist()}))
+    check_ids("kmeans_assign_partials on the job's points",
+              ref["kernel_vs_plain"])
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
+                      np.abs(ref["centroids"]))),
+          f"committed centroids off the float64 oracle: max abs "
+          f"{err.max():.3g}, max rel {rel:.3g}")
+    if profile:
+        profile_warm_job(work)
+    return {"jobs": jobs, "launches": main_launches}
 
 
 def default_route(work: str, n_splits: int, km, want: bytes) -> None:
@@ -571,6 +604,305 @@ def outside_job(km, label: str, n: int, d: int, k: int, rows: int,
         return row
     finally:
         gpu_runner.clear_split_caches()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def round_conf(work: str, prefix: str, rows: int) -> dict:
+    """bench.py's round conf (bench.py:290-305) for the local runner on the
+    card, templated by round: the centroids in from {prefix}cents-r{round}
+    and out to {prefix}cents-r{next_round}, the kernel mapper named, the
+    whole dataset resident."""
+    return {
+        "mapred.input.dir": f"file://{work}/points.npy",
+        "mapred.output.dir": f"file://{work}/{prefix}round-out-r{{round}}",
+        "mapred.input.format.class":
+            "tpumr_torch.mapred.input_formats.DenseInputFormat",
+        "tpumr.dense.split.rows": rows,
+        "mapred.reducer.class":
+            "tpumr_torch.ops.kmeans.KMeansCentroidUpdateReducer",
+        "mapred.reduce.tasks": 1,
+        "tpumr.kmeans.centroids": f"file://{work}/{prefix}cents-r{{round}}.npy",
+        "tpumr.kmeans.centroids.out":
+            f"file://{work}/{prefix}cents-r{{next_round}}.npy",
+        "tpumr.map.kernel": "kmeans-assign",
+        "tpumr.tpu.split.cache.mb": 8192,
+    }
+
+
+def run_rounds(work: str, prefix: str, n: int, km,
+               clear_each_round: bool) -> list:
+    """ROUNDS rounds from {prefix}cents-r0.npy, one job each. Checks every
+    round: 0 bytes staged and a split-cache hit per split (the main path's
+    splits are resident), the fused kernel once per split and kmeans_assign
+    never, the next round's centroid tag resident on the card, and the
+    shift counter equal to round(1000 * sum |r_next - r|) of the two
+    files; centroid uploads: once in round 0 and never after for versioned
+    rounds, once per round where the caches are cleared."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.local_runner import run_job
+    from tpumr_torch.ops import devcache
+    from tpumr_torch.pipeline.graph import expand_round
+    n_splits = -(-n // ROWS_PER_SPLIT)
+    template = round_conf(work, prefix, ROWS_PER_SPLIT)
+    rows = []
+    for r in range(ROUNDS):
+        if clear_each_round:
+            km.clear_centroid_cache()    # bench.py:320-336's shape
+        conf = JobConf()
+        for key, value in expand_round(template, r).items():
+            conf.set(key, value)
+        cache = gpu_runner.split_cache(torch.device("cuda", 0), 8192 << 20)
+        hits0, launches0 = cache.hits, launch_counts(km)
+        uploads0 = km.centroids_from_numpy.uploads
+        preseeds0 = km.KMeansCentroidUpdateReducer.preseeds
+        t = time.monotonic()
+        result = run_job(conf)
+        secs = time.monotonic() - t
+        check(result.successful, f"{prefix}round {r} failed")
+        row = {"round": r, "seconds": secs,
+               "bytes_staged": result.counters.value(
+                   BackendCounter.GROUP,
+                   BackendCounter.TPU_DEVICE_BYTES_STAGED),
+               "split_cache_hits": cache.hits - hits0,
+               "centroid_uploads": km.centroids_from_numpy.uploads - uploads0,
+               "preseeds": km.KMeansCentroidUpdateReducer.preseeds
+               - preseeds0,
+               "launches": {name: v - launches0[name]
+                            for name, v in launch_counts(km).items()},
+               "shift_milli": result.counters.value(
+                   km.SHIFT_COUNTER_GROUP, km.SHIFT_COUNTER)}
+        log(f"rounds {'sequential' if clear_each_round else 'versioned'} "
+            + json.dumps(row))
+        label = f"{prefix}round {r}"
+        check(row["bytes_staged"] == 0 and
+              row["split_cache_hits"] == n_splits,
+              f"{label}: staged {row['bytes_staged']} bytes, "
+              f"{row['split_cache_hits']} split-cache hits of {n_splits}")
+        want_uploads = 1 if clear_each_round or r == 0 else 0
+        check(row["centroid_uploads"] == want_uploads,
+              f"{label}: {row['centroid_uploads']} centroid uploads, "
+              f"expected {want_uploads}")
+        check(row["preseeds"] == 1, f"{label}: the reducer pre-seeded "
+              f"{row['preseeds']} times")
+        check(row["launches"] == {"kmeans_assign_partials": n_splits,
+                                  "kmeans_assign": 0},
+              f"{label}: launches {row['launches']}")
+        tag = f"kmeans-centroids:file://{work}/{prefix}cents-r{r + 1}.npy"
+        check(tag in devcache.inventory(),
+              f"{label}: {tag} is not resident after the round")
+        prev = np.load(os.path.join(work, f"{prefix}cents-r{r}.npy"))
+        new = np.load(os.path.join(work, f"{prefix}cents-r{r + 1}.npy"))
+        want_shift = int(round(float(np.abs(new - prev).sum()) * 1000))
+        check(row["shift_milli"] == want_shift,
+              f"{label}: CENTROID_SHIFT_MILLI {row['shift_milli']}, the "
+              f"files give {want_shift}")
+        rows.append(row)
+    return rows
+
+
+def rounds_phase(work: str, n: int, km) -> dict:
+    """Iterative K-Means over the main path's points and resident splits:
+    ROUNDS versioned rounds (no clear between them), rounds 0 and 9 against
+    a float64 Lloyd step each; the same rounds with the caches cleared
+    before each round, byte-identical (bench.py:379-381); and the examples
+    kmeans program for CLI_ITERATIONS iterations in a process of its own,
+    equal to the versioned rounds' file of that round."""
+    from tpumr_torch.examples.basic import load_npy_rows
+    from tpumr_torch.fs.filesystem import FileSystem
+    points = f"file://{work}/points.npy"
+    seeds = load_npy_rows(FileSystem.get(points), points, K)
+    for prefix in ("", "seq-"):
+        np.save(os.path.join(work, f"{prefix}cents-r0.npy"),
+                seeds.astype(np.float32))
+    zero_launch_counts(km)               # the rounds' count starts
+    t = time.monotonic()
+    versioned = run_rounds(work, "", n, km, clear_each_round=False)
+    sequential = run_rounds(work, "seq-", n, km, clear_each_round=True)
+    launches = launch_counts(km)
+    secs = time.monotonic() - t
+    km.clear_pipeline_caches()           # teardown: one sweep
+    final = []
+    for prefix in ("", "seq-"):
+        with open(os.path.join(work, f"{prefix}cents-r{ROUNDS}.npy"),
+                  "rb") as f:
+            final.append(f.read())
+    check(final[0] == final[1], "sequential rounds' final centroids differ "
+          "from the versioned rounds'")
+
+    oracles = {}
+    for r in (0, ROUNDS - 1):
+        cents = np.load(os.path.join(work, f"cents-r{r}.npy"))
+        got = np.load(os.path.join(work, f"cents-r{r + 1}.npy"))
+        want = oracle(work, n, cents, km, compare=False)["centroids"]
+        err = np.abs(got - want)
+        oracles[r] = float(err.max())
+        check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
+                          np.abs(want))),
+              f"round {r}: centroids off a float64 Lloyd step by up to "
+              f"{err.max():.3g}")
+
+    out = os.path.join(work, "cli-out")
+    cmd = [sys.executable, "-m", "tpumr_torch.cli", "examples", "kmeans",
+           points, f"file://{out}", "-k", str(K), "-i", str(CLI_ITERATIONS),
+           "--split-rows", str(ROWS_PER_SPLIT)]
+    t_cli = time.monotonic()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=600)
+    t_cli = time.monotonic() - t_cli
+    check(proc.returncode == 0, f"examples kmeans exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    cli_final = np.load(os.path.join(out, "centroids.npy"))
+    want = np.load(os.path.join(work, f"cents-r{CLI_ITERATIONS}.npy"))
+    check(cli_final.dtype == want.dtype and
+          np.array_equal(cli_final, want),
+          f"examples kmeans' centroids after {CLI_ITERATIONS} iterations "
+          f"differ from round {CLI_ITERATIONS}'s by up to "
+          f"{float(np.abs(cli_final - want).max()):.3g}")
+    warm = [r["seconds"] for r in versioned[1:]]
+    summary = {"rounds": ROUNDS, "seconds": secs, "launches": launches,
+               "versioned_round_s": [r["seconds"] for r in versioned],
+               "sequential_round_s": [r["seconds"] for r in sequential],
+               "warm_round_s_median": float(np.median(warm)),
+               "oracle_max_abs_err": oracles,
+               "cli_seconds": t_cli, "cli_equal_round": CLI_ITERATIONS}
+    log("rounds_summary " + json.dumps(summary))
+    return summary
+
+
+def matmul_bound_ms(m: int, k: int, n: int, peak_flops: float
+                    ) -> tuple[float, str]:
+    """Least time for one map's product: the f32 operands read once and
+    the f32 product written once, against 2mkn operations at
+    ``peak_flops``."""
+    t_bytes = 4 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S
+    t_ops = 2 * m * k * n / peak_flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def matmul_phase() -> dict:
+    """BASELINE config 4 through the port: the map-only blocked product
+    (MM_N x MM_N f32 A and B from default_rng(2), splits of MM_ROWS rows)
+    with DenseNpyOutputFormat, in f32 and in bf16 (f32 out), each against a
+    float64 product; then D = C @ B over the f32 job's output, which must
+    read every split from the card (output chain) and stage 0 bytes.
+    Times each job and one map's product in f32 and bf16 beside their
+    bounds."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.mapred import device_output, gpu_runner
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.local_runner import run_job
+    from tpumr_torch.mapred.output_formats import DenseNpyOutputFormat
+    from tpumr_torch.ops import matmul
+
+    work = tempfile.mkdtemp(prefix="tpumr_torch-matmul-")
+    real_lookup = device_output.lookup
+    hits = []
+
+    def counted_lookup(*args):
+        got = real_lookup(*args)
+        hits.append(got is not None)
+        return got
+
+    try:
+        rng = np.random.default_rng(2)
+        a = rng.standard_normal(size=(MM_N, MM_N), dtype=np.float32)
+        b = rng.standard_normal(size=(MM_N, MM_N), dtype=np.float32)
+        np.save(os.path.join(work, "a.npy"), a)
+        np.save(os.path.join(work, "b.npy"), b)
+        gpu_runner.clear_split_caches()
+        matmul.clear_b_cache()
+        device_output.lookup = counted_lookup
+
+        def job(label: str, inp: str, out: str, bf16: bool) -> dict:
+            conf = JobConf()
+            conf.set_input_paths(f"file://{work}/{inp}")
+            conf.set_output_path(f"file://{work}/{out}")
+            conf.set_input_format(DenseInputFormat)
+            conf.set_output_format(DenseNpyOutputFormat)
+            conf.set("tpumr.dense.split.rows", MM_ROWS)
+            conf.set("tpumr.matmul.b", f"file://{work}/b.npy")
+            conf.set("tpumr.matmul.bf16", bf16)
+            conf.set_map_kernel("matmul-block")
+            conf.set_num_reduce_tasks(0)
+            hits.clear()
+            t = time.monotonic()
+            result = run_job(conf)
+            secs = time.monotonic() - t
+            check(result.successful, f"matmul {label} job failed")
+            maps = MM_N // MM_ROWS
+            got = np.concatenate([
+                np.load(os.path.join(work, out, f"part-{i:05d}.npy"))
+                for i in range(maps)])
+            row = {"job": label, "seconds": secs, "maps": result.num_maps,
+                   "device_maps": result.counters.value(
+                       BackendCounter.GROUP, BackendCounter.TPU_MAP_TASKS),
+                   "bytes_staged": result.counters.value(
+                       BackendCounter.GROUP,
+                       BackendCounter.TPU_DEVICE_BYTES_STAGED),
+                   "chain_hits": sum(hits), "dtype": str(got.dtype)}
+            check(result.num_maps == maps and row["device_maps"] == maps,
+                  f"matmul {label}: {row['device_maps']} of "
+                  f"{result.num_maps} maps on the device, expected {maps}")
+            check(got.dtype == np.float32 and got.shape == (MM_N, MM_N),
+                  f"matmul {label}: output {got.dtype} {got.shape}")
+            return row, got
+
+        def held(label: str, row: dict, got: np.ndarray, want, scale):
+            err = (torch.from_numpy(got).cuda().double() - want).abs()
+            ratio = float((err / scale).max())
+            row |= {"max_abs_err": float(err.max()),
+                    "max_err_over_scale": ratio, "err_bound": MM_ERR}
+            log("matmul " + json.dumps(row))
+            check(ratio <= MM_ERR, f"matmul {label}: |C - C64| reaches "
+                  f"{ratio:.3g} of the f32 error scale, over {MM_ERR}")
+
+        a64 = torch.from_numpy(a).cuda().double()
+        b64 = torch.from_numpy(b).cuda().double()
+        ab64 = a64 @ b64
+        scale_ab = a64.abs() @ b64.abs()
+
+        row, c32 = job("f32", "a.npy", "c32", bf16=False)
+        check(row["bytes_staged"] == a.nbytes and row["chain_hits"] == 0,
+              f"matmul f32: staged {row['bytes_staged']} bytes")
+        held("f32", row, c32, ab64, scale_ab)
+        rows = [row]
+
+        row, c16 = job("bf16", "a.npy", "c16", bf16=True)
+        a16 = torch.from_numpy(a).cuda().bfloat16().double()
+        b16 = torch.from_numpy(b).cuda().bfloat16().double()
+        held("bf16", row, c16, a16 @ b16, a16.abs() @ b16.abs())
+        rows.append(row)
+        del a16, b16
+
+        row, d = job("chain", "c32", "d", bf16=False)
+        check(row["bytes_staged"] == 0 and
+              row["chain_hits"] == MM_N // MM_ROWS,
+              f"matmul chain: staged {row['bytes_staged']} bytes, "
+              f"{row['chain_hits']} output-chain hits")
+        held("chain", row, d, ab64 @ b64, scale_ab @ b64.abs())
+        rows.append(row)
+        del a64, b64, ab64, scale_ab
+
+        blk = torch.from_numpy(a[:MM_ROWS]).cuda()
+        bd = torch.from_numpy(b).cuda()
+        product = {}
+        for label, bf16, peak in (("f32", False, PEAK_F32_FLOP_PER_S),
+                                  ("bf16", True, PEAK_BF16_FLOP_PER_S)):
+            bound, bound_by = matmul_bound_ms(MM_ROWS, MM_N, MM_N, peak)
+            product[label] = {
+                "shape": [MM_ROWS, MM_N, MM_N],
+                "ms": time_ms(lambda: matmul.block_matmul(blk, bd, bf16)),
+                "bound_ms": bound, "bound_by": bound_by}
+        log("matmul_product " + json.dumps(product))
+        return {"jobs": rows, "product": product}
+    finally:
+        device_output.lookup = real_lookup
+        gpu_runner.clear_split_caches()
+        matmul.clear_b_cache()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -687,15 +1019,22 @@ def main() -> None:
 
     shapes = kernel_phase(km)
     fused = fused_phase(km)
-    main = main_path(args.points, km, args.profile)
+    work = tempfile.mkdtemp(prefix="tpumr_torch-smoke-")
+    try:
+        main = main_path(work, args.points, km, args.profile)
+        rounds = rounds_phase(work, args.points, km)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     job2 = second_job(km)
     job3 = third_job(km)
+    matmul_phase()
     f, a = fused["main"], shapes["job2"]
     kernels = [{
         "name": "kmeans_assign_partials", "route": "cuda",
         "source": "tpumr_torch/csrc/kmeans_assign_partials.cu",
         "replaces": "tpumr/ops/kmeans.py:57",
-        "launches": main["launches"]["kmeans_assign_partials"],
+        "launches": main["launches"]["kmeans_assign_partials"]
+        + rounds["launches"]["kmeans_assign_partials"],
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

@@ -1,4 +1,5 @@
-"""Device selection for the port, and its no-fallback rule.
+"""Device selection for the port, its no-fallback rule, and full-f32
+products.
 
 Counterpart of ``tpumr/mapred/tpu_runner.py::_select_device``. The port runs
 on ``cuda`` unless the caller asks for the CPU, through a ``device=``
@@ -36,3 +37,13 @@ def select_device(conf: Any, dev_id: int = -1) -> torch.device:
         return dev
     return torch.device("cuda", dev_id % torch.cuda.device_count()
                         if dev_id >= 0 else 0)
+
+
+def full_f32_products() -> None:
+    """Keep every f32 matrix product in full f32 (TF32 off): TF32 keeps
+    about three decimal digits, which would move near-tie K-Means
+    assignments and the matmul job's products away from the f32
+    reference. Idempotent; the port's f32 products call it, so none
+    depends on which module was imported first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

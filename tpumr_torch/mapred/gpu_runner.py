@@ -6,9 +6,11 @@ Counterpart of ``tpumr/mapred/tpu_runner.py``:
 - :class:`DeviceSplitCache` is ``HbmSplitCache`` (``:40-106``), keyed by
   torch device: a split staged once stays resident across the tasks and
   jobs of the process, so later rounds skip both the read and the copy;
-- :func:`stage_batch` is the dense branch of ``stage_batch`` (``:322-390``);
+- :func:`stage_batch` is the dense branch of ``stage_batch`` (``:322-390``),
+  with the output chain's lookup (``device_output``) on a split-cache miss;
 - :meth:`GpuMapRunner.run` is ``TpuMapRunner.run`` with its prefetch drain
-  (``:205-250``);
+  (``:205-250``), offering a kernel's device rows to a dense output writer
+  (``_offer_device_rows``, ``:401-440``);
 - :func:`prelaunch_device_maps` is the window path (``:442-514``): it
   stages and launches a window of map tasks, then brings every task's
   output to the host in ONE copy, one synchronisation per window;
@@ -29,6 +31,7 @@ from tpumr_torch.core.counters import BackendCounter, TaskCounter
 from tpumr_torch.device import select_device
 from tpumr_torch.fs.filesystem import FileSystem
 from tpumr_torch.io.recordbatch import DenseBatch
+from tpumr_torch.mapred import device_output
 from tpumr_torch.mapred.api import MapRunnable
 from tpumr_torch.mapred.split import DenseSplit, InputSplit
 from tpumr_torch.utils.reflection import new_instance
@@ -79,6 +82,11 @@ class DeviceSplitCache:
             for k in [k for k in self._entries if pred(k)]:
                 _v, b = self._entries.pop(k)
                 self._bytes -= b
+
+    def snapshot(self) -> "list[tuple[tuple, int]]":
+        """(key, charged bytes) of every entry, least recent first."""
+        with self._lock:
+            return [(k, b) for k, (_v, b) in self._entries.items()]
 
     @property
     def resident_bytes(self) -> int:
@@ -149,6 +157,22 @@ def stage_batch(conf: Any, task: Any, device: "torch.device | None"
     if entry is not None:
         staged, ids, meta = entry
         return DenseBatch(staged, ids, dict(meta)), 0
+    # output chain: a predecessor job may have left this file's image on
+    # the device; slice the split's rows there, with no read and no copy
+    whole = device_output.lookup(conf, device,
+                                 FileSystem.get(split.path, conf),
+                                 split.path, st.length, st.mtime)
+    if (whole is not None and whole.dim() == 2
+            and whole.shape[0] >= split.row_start + split.num_rows
+            and whole.shape[1] == split.cols
+            and device_output.numpy_dtype(whole.dtype)
+            == np.dtype(split.dtype)):
+        staged = whole[split.row_start:split.row_start + split.num_rows]
+        ids = np.arange(split.row_start, split.row_start + split.num_rows,
+                        dtype=np.int64)
+        cache.put(key, (staged, ids, {}),
+                  staged.numel() * staged.element_size())
+        return DenseBatch(staged, ids, {}), 0
     batch = in_fmt.read_batch(split, conf)
     staged = to_device(batch.values, device)
     nbytes = int(batch.values.nbytes)
@@ -176,6 +200,9 @@ class GpuMapRunner(MapRunnable):
         if pre is not None:
             # a window already staged, launched and fetched this task's
             # kernel output; only the drain remains
+            if pre.device_rows is not None:
+                device_output.offer(str(conf.get("tpumr.task.attempt.id")),
+                                    pre.device_rows)
             reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
                                   TaskCounter.MAP_INPUT_RECORDS,
                                   pre.num_records)
@@ -194,16 +221,40 @@ class GpuMapRunner(MapRunnable):
         reporter.incr_counter(BackendCounter.GROUP,
                               BackendCounter.TPU_DEVICE_BYTES_STAGED,
                               staged_bytes)
-        for key, value in kernel.map_batch(batch, conf, task_ctx):
+        from tpumr_torch.ops.registry import fetch_to_host
+        state = kernel.map_batch_launch(batch, conf, task_ctx)
+        _offer_device_rows(kernel, state, conf)
+        for key, value in kernel.map_batch_drain(fetch_to_host([state])[0],
+                                                 conf, task_ctx):
             output.collect(key, value)
+
+
+def _device_rows_of(kernel: Any, state: Any, conf: Any) -> Any:
+    """The kernel's device output rows for the output chain, or None: only
+    for a job whose output format claims them (``DenseNpyOutputFormat``),
+    so no other job leaves tensors waiting for a claim."""
+    hook = getattr(kernel, "device_output_rows", None)
+    if hook is None or not getattr(conf.get_output_format(),
+                                   "claims_device_rows", False):
+        return None
+    return hook(state)
+
+
+def _offer_device_rows(kernel: Any, state: Any, conf: Any) -> None:
+    rows = _device_rows_of(kernel, state, conf)
+    if rows is not None:
+        device_output.offer(str(conf.get("tpumr.task.attempt.id")), rows)
 
 
 @dataclass
 class DevicePrefetch:
-    """Fetched kernel output of one map task of a window."""
+    """Fetched kernel output of one map task of a window. ``device_rows``
+    keeps the task's output tensor on the device, for the output chain,
+    until the task offers it at its drain."""
     fetched: Any
     num_records: int
     staged_bytes: int
+    device_rows: Any = None
 
 
 def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
@@ -224,17 +275,20 @@ def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
     device = select_device(conf, dev_ids.pop())
     budget = conf.get_int("tpumr.tpu.pipeline.window.mb", 2048) << 20
     states: list[Any] = []
-    meta: list[tuple[int, int]] = []
+    meta: list[tuple[int, int, Any]] = []
     resident = 0
     for task in tasks:
         batch, staged_bytes = stage_batch(conf, task, device)
-        states.append(kernel.map_batch_launch(batch, conf, task))
-        meta.append((batch.num_records, staged_bytes))
+        state = kernel.map_batch_launch(batch, conf, task)
+        states.append(state)
+        meta.append((batch.num_records, staged_bytes,
+                     _device_rows_of(kernel, state, conf)))
         resident += staged_bytes
         if resident >= budget and len(states) < len(tasks):
             break  # close the window early; the caller resumes after us
     fetched = fetch_to_host(states)     # ONE copy for the window
-    return [DevicePrefetch(f, n, b) for f, (n, b) in zip(fetched, meta)]
+    return [DevicePrefetch(f, n, b, rows)
+            for f, (n, b, rows) in zip(fetched, meta)]
 
 
 class CpuBatchMapRunner(MapRunnable):

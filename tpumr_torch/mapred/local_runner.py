@@ -6,7 +6,9 @@ another. A kernel mapper's tasks run through windows (the path of
 ``local_runner.py:108-130``): a window of tasks is staged and launched back
 to back, every task's output comes to the host in one copy
 (``gpu_runner.prelaunch_device_maps``), and each task is then drained
-through the normal collect/spill path.
+through the normal collect/spill path. A map-only job
+(``mapred.reduce.tasks=0``) commits each map attempt's output and has no
+reduce phase.
 
 The entry points run on ``cuda`` unless the caller asks for the CPU with
 ``device="cpu"`` or the conf key ``tpumr_torch.device=cpu``
@@ -82,9 +84,6 @@ class LocalJobRunner:
         new_instance(conf.get_output_format(), conf).check_output_specs(conf)
         splits = in_fmt.get_splits(conf, conf.num_map_tasks_hint)
         num_reduces = conf.num_reduce_tasks
-        if num_reduces < 1:
-            raise ValueError("map-only jobs (mapred.reduce.tasks=0) are not "
-                             "ported")
         committer = FileOutputCommitter(conf)
         committer.setup_job()
         counters = Counters()
@@ -104,6 +103,8 @@ class LocalJobRunner:
                 conf, task, f"{work_root}/map_{task.partition:06d}",
                 reporter))
             task.device_prefetch = None   # free the window's host copy
+            if num_reduces == 0:          # a map-only job's output
+                committer.commit_task(str(task.attempt_id))
             counters.merge(reporter.counters)
             counters.incr(JobCounter.GROUP, JobCounter.LAUNCHED_MAP_TASKS)
 

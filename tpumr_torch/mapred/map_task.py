@@ -1,10 +1,12 @@
 """Map-side execution: run the split through its runner, partition and sort
-the output, write one IFile spill.
+the output, write one IFile spill; or, in a map-only job, write through the
+job's output format.
 
-Counterpart of ``tpumr/mapred/map_task.py``. A K-Means map task emits k
-records, so its output is written once, at the end of the task. Spilling
-several times and merging the spills is not ported: a map output that
-reaches the point where the JAX package would spill early
+Counterpart of ``tpumr/mapred/map_task.py``. Every attempt runs on its own
+copy of the job conf carrying its identity (:func:`localize_task_conf`). A
+K-Means map task emits k records, so its output is written once, at the end
+of the task. Spilling several times and merging the spills is not ported: a
+map output that reaches the point where the JAX package would spill early
 (``io.sort.mb`` × ``io.sort.spill.percent``) raises instead.
 """
 
@@ -18,6 +20,7 @@ from tpumr_torch.core.counters import BackendCounter, TaskCounter
 from tpumr_torch.io import ifile
 from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred.api import OutputCollector, Reporter
+from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
@@ -82,13 +85,29 @@ class MapOutputBuffer:
         return path, index
 
 
+def localize_task_conf(conf: Any, task: Task) -> Any:
+    """A copy of the job conf for one attempt, with its identity keys set:
+    ``tpumr.task.attempt.id``, ``tpumr.task.partition`` and
+    ``tpumr.task.is.map``. A copy, so that tasks sharing the job conf never
+    see each other's keys."""
+    from tpumr_torch.mapred.jobconf import JobConf
+    local = JobConf(conf)
+    local.set("tpumr.task.attempt.id", str(task.attempt_id))
+    local.set("tpumr.task.partition", task.partition)
+    local.set("tpumr.task.is.map", task.is_map)
+    return local
+
+
 def run_map_task(conf: Any, task: Task, local_dir: str,
                  reporter: "Reporter | None" = None) -> tuple[str, dict]:
     """Execute one map attempt: the device runner for an accelerator task,
     the CPU batch runner otherwise; collect into the buffer; write the
-    IFile. Returns (output_path, index)."""
+    IFile. Returns (output_path, index). A map-only job
+    (``num_reduces == 0``) writes through the job's output format into the
+    committer's work dir instead and returns ``("", {})``."""
     from tpumr_torch.mapred.gpu_runner import CpuBatchMapRunner, GpuMapRunner
     reporter = reporter or Reporter()
+    conf = localize_task_conf(conf, task)
     t0 = time.monotonic()
     if task.run_on_tpu:
         runner_cls = GpuMapRunner
@@ -98,10 +117,25 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
         runner_cls = CpuBatchMapRunner
         backend_tasks, backend_ms = (BackendCounter.CPU_MAP_TASKS,
                                      BackendCounter.CPU_MAP_MILLIS)
-    buffer = MapOutputBuffer(conf, task.num_reduces, local_dir, reporter)
-    new_instance(runner_cls, conf).run(OutputCollector(buffer.collect),
-                                       reporter, task_ctx=task)
-    out = buffer.flush()
+    runner = new_instance(runner_cls, conf)
+    if task.num_reduces == 0:
+        wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
+        writer = new_instance(conf.get_output_format(), conf) \
+            .get_record_writer(conf, wd, task.partition)
+        ok = False
+        try:
+            runner.run(OutputCollector(writer.write), reporter, task_ctx=task)
+            ok = True
+        finally:
+            # a failed attempt aborts a writer that can (nothing written or
+            # published); others close into a work dir never committed
+            abort = None if ok else getattr(writer, "abort", None)
+            (abort or writer.close)()
+        out: tuple[str, dict] = ("", {})
+    else:
+        buffer = MapOutputBuffer(conf, task.num_reduces, local_dir, reporter)
+        runner.run(OutputCollector(buffer.collect), reporter, task_ctx=task)
+        out = buffer.flush()
     reporter.incr_counter(BackendCounter.GROUP, backend_tasks)
     reporter.incr_counter(BackendCounter.GROUP, backend_ms,
                           int((time.monotonic() - t0) * 1000))

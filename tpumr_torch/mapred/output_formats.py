@@ -1,16 +1,22 @@
-"""Text output and the two-phase output commit.
+"""Text and dense ``.npy`` output, and the two-phase output commit.
 
-Counterpart of ``TextOutputFormat`` and ``FileOutputCommitter`` in
-``tpumr/mapred/output_formats.py``. Tasks write under
+Counterpart of ``TextOutputFormat``, ``DenseNpyOutputFormat`` and
+``FileOutputCommitter`` in ``tpumr/mapred/output_formats.py``. Tasks write
+under
 ``$out/_temporary/<attempt>/``; a committed attempt's files move into
 ``$out``; the job commit writes ``_SUCCESS`` and removes ``_temporary``.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 from typing import Any
 
+import numpy as np
+
 from tpumr_torch.fs.filesystem import FileSystem, Path
+from tpumr_torch.mapred import device_output
 
 TEMP_DIR = "_temporary"
 SUCCESS_MARKER = "_SUCCESS"
@@ -37,15 +43,8 @@ class _TextWriter:
         self._f.close()
 
 
-class TextOutputFormat:
-    """key<TAB>value lines, one part file per reduce."""
-
-    def get_record_writer(self, conf: Any, work_dir: str,
-                          partition: int) -> _TextWriter:
-        fs = FileSystem.get(work_dir, conf)
-        sep = conf.get("mapred.textoutputformat.separator", "\t")
-        return _TextWriter(fs.create(Path(work_dir).child(part_name(partition))),
-                           sep)
+class FileOutputFormat:
+    """Output under ``mapred.output.dir``, one part file per task."""
 
     def check_output_specs(self, conf: Any) -> None:
         """Refuse to clobber an existing non-empty output directory."""
@@ -56,6 +55,75 @@ class TextOutputFormat:
         if fs.exists(out) and (not fs.get_status(out).is_dir
                                or fs.list_status(out)):
             raise FileExistsError(f"output directory already exists: {out}")
+
+
+class TextOutputFormat(FileOutputFormat):
+    """key<TAB>value lines, one part file per reduce."""
+
+    def get_record_writer(self, conf: Any, work_dir: str,
+                          partition: int) -> _TextWriter:
+        fs = FileSystem.get(work_dir, conf)
+        sep = conf.get("mapred.textoutputformat.separator", "\t")
+        return _TextWriter(fs.create(Path(work_dir).child(part_name(partition))),
+                           sep)
+
+
+class _DenseNpyWriter:
+    """Collects a task's (row0, 2-D block) records into one ``.npy`` part
+    file, rows in ``row0`` order, then publishes the task's offered device
+    rows as the file's resident image (``device_output``)."""
+
+    def __init__(self, conf: Any, fs: FileSystem, path: Path) -> None:
+        self._conf = conf
+        self._fs = fs
+        self._path = path
+        self._blocks: "list[tuple[int, np.ndarray]]" = []
+
+    def write(self, key: Any, value: Any) -> None:
+        self._blocks.append((int(key), np.asarray(value)))
+
+    def close(self) -> None:
+        self._blocks.sort(key=lambda b: b[0])
+        arr = (np.concatenate([b[1] for b in self._blocks])
+               if self._blocks else np.zeros((0, 0), np.float32))
+        buf = io.BytesIO()
+        np.save(buf, np.ascontiguousarray(arr))
+        data = buf.getvalue()
+        with self._fs.create(self._path) as f:
+            f.write(data)
+        rows = device_output.claim(
+            str(self._conf.get("tpumr.task.attempt.id", "")))
+        if (rows is not None and tuple(rows.shape) == arr.shape
+                and device_output.numpy_dtype(rows.dtype) == arr.dtype):
+            # the written file's mtime is part of the key; the commit
+            # rename keeps it
+            head, tail, size = device_output.head_tail(data)
+            device_output.publish(
+                self._conf, rows, head, tail, size,
+                self._fs.get_status(self._path).mtime,
+                full_sha=hashlib.sha1(data).hexdigest())
+
+    def abort(self) -> None:
+        """A failed attempt writes no file and publishes nothing."""
+        self._blocks.clear()
+        device_output.claim(str(self._conf.get("tpumr.task.attempt.id", "")))
+
+
+class DenseNpyOutputFormat(FileOutputFormat):
+    """Map-side dense output: records are ``(row0, 2-D block)``; each task
+    writes ``part-NNNNN.npy``. A later ``DenseInputFormat`` job over the
+    directory stages the blocks straight from the card where they are
+    still resident."""
+
+    #: the device runner offers a kernel's device rows only to a format
+    #: that claims them
+    claims_device_rows = True
+
+    def get_record_writer(self, conf: Any, work_dir: str,
+                          partition: int) -> _DenseNpyWriter:
+        fs = FileSystem.get(work_dir, conf)
+        return _DenseNpyWriter(
+            conf, fs, Path(work_dir).child(part_name(partition) + ".npy"))
 
 
 class FileOutputCommitter:

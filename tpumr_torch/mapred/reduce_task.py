@@ -4,7 +4,11 @@ reduce, write.
 Counterpart of ``tpumr/mapred/reduce_task.py`` on the local path: each map
 output is a file of this process, read directly (no network shuffle);
 the merge is a k-way heap merge over the sorted segments; groups follow the
-job's output-key comparator.
+job's output-key comparator. The attempt runs on its own localised conf
+(``map_task.localize_task_conf``), and a failed attempt aborts its reducer
+and writer where they can abort, so that a partly fed reducer never
+publishes (``KMeansCentroidUpdateReducer`` writes next-round state in
+``close``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from tpumr_torch.core.counters import TaskCounter
 from tpumr_torch.io import ifile
 from tpumr_torch.io.writable import deserialize
 from tpumr_torch.mapred.api import IdentityReducer, OutputCollector, Reporter
+from tpumr_torch.mapred.map_task import localize_task_conf
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
@@ -26,6 +31,7 @@ def run_reduce_task(conf: Any, task: Task,
     """Execute one reduce attempt over ``map_outputs``, the (path, index)
     of every map task's IFile, into the attempt's committer work dir."""
     reporter = reporter or Reporter()
+    conf = localize_task_conf(conf, task)
     sk = conf.get_output_key_comparator().sort_key
     segments = [ifile.read_partition(path, index, task.partition)
                 for path, index in map_outputs]
@@ -42,6 +48,7 @@ def run_reduce_task(conf: Any, task: Task,
         writer.write(k, v)
 
     collector = OutputCollector(emit)
+    ok = False
     try:
         for key, values in group_by_key(merged, sk, reporter):
             reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
@@ -49,9 +56,15 @@ def run_reduce_task(conf: Any, task: Task,
             reducer.reduce(key, values, collector, reporter)
             for _ in values:   # drain what the reducer left unread
                 pass
+        ok = True
     finally:
-        reducer.close()
-        writer.close()
+        # a failed attempt goes through abort() where the reducer or the
+        # writer has one: close() may publish (the update reducer's next
+        # round), and a partly fed attempt must not
+        r_abort = None if ok else getattr(reducer, "abort", None)
+        (r_abort or reducer.close)()
+        w_abort = None if ok else getattr(writer, "abort", None)
+        (w_abort or writer.close)()
 
 
 def group_by_key(stream: Iterator[tuple[bytes, bytes]],

@@ -1,9 +1,10 @@
-"""Device-resident cache for kernel side inputs (the K-Means centroids).
+"""Device-resident cache for kernel side inputs (K-Means centroids, matmul B).
 
 Counterpart of ``tpumr/ops/devcache.py``. Every map task of a job reads the
-same centroids; they are uploaded once per (tag, device) and served from
-device memory after. Keyed by ``(tag, torch device)`` where the JAX package
-keyed by ``jax.config.jax_default_device``. One byte-budgeted
+same side input (the K-Means centroids, the matmul B); it is uploaded once
+per (tag, device) and served from device memory after. Keyed by
+``(tag, str(torch device))`` where the JAX package keyed by
+``jax.config.jax_default_device``. One byte-budgeted
 :class:`~tpumr_torch.mapred.gpu_runner.DeviceSplitCache`
 (``tpumr.ops.device.cache.mb``, default 1024, fixed at first use).
 """
@@ -54,3 +55,35 @@ def clear_device_cache(tag_prefix: "str | None" = None) -> None:
         cache.clear()
     else:
         cache.drop_where(lambda k: k[0].startswith(tag_prefix))
+
+
+def inventory(max_tags: int = 32) -> "dict[str, int]":
+    """Resident tag -> bytes summed over devices, most recent first, at
+    most ``max_tags`` tags; empty before the cache's first use."""
+    with _lock:
+        cache = _cache
+    if cache is None:
+        return {}
+    tags: "dict[str, int]" = {}
+    for (tag, _device), nbytes in reversed(cache.snapshot()):
+        if tag in tags:
+            tags[tag] += nbytes
+        elif len(tags) < max_tags:
+            tags[tag] = nbytes
+    return tags
+
+
+def occupancy() -> "dict[str, Any]":
+    """Entry count, resident bytes, and bytes per tag family (the tag's
+    prefix before the first ``:``)."""
+    with _lock:
+        cache = _cache
+    if cache is None:
+        return {"entries": 0, "bytes": 0, "families": {}}
+    snap = cache.snapshot()
+    families: "dict[str, int]" = {}
+    for (tag, _device), nbytes in snap:
+        family = tag.split(":", 1)[0]
+        families[family] = families.get(family, 0) + nbytes
+    return {"entries": len(snap), "bytes": sum(b for _k, b in snap),
+            "families": families}

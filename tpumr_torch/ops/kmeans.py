@@ -16,6 +16,11 @@ its TPU kernel ``_assign_kernel`` (``pallas_assign``):
 :func:`assign_and_partials` picks between them by shape alone
 (:func:`route`). A map task emits k small records, and the centroid
 all-reduce rides the shuffle.
+
+Iterative K-Means runs one job per round: :class:`KMeansCentroidUpdateReducer`
+writes round r+1's centroid file (a path of its own per round) and puts
+the new centroids on the card under that path's cache tag, so round r+1's
+maps upload none (:func:`centroids_from_numpy` counts the uploads).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, Iterable, NamedTuple
 import numpy as np
 import torch
 
+from tpumr_torch.device import full_f32_products, select_device
 from tpumr_torch.mapred.api import Mapper, Reducer
 from tpumr_torch.ops import native
 from tpumr_torch.ops.registry import KernelMapper, register_kernel
@@ -34,8 +40,7 @@ from tpumr_torch.ops.registry import KernelMapper, register_kernel
 # Products in full f32 on the card: TF32 keeps about three decimal digits,
 # which would move near-tie assignments and the partial sums away from the
 # f32 reference.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.set_float32_matmul_precision("highest")
+full_f32_products()
 
 #: kmeans_assign's tile instances (BN centroids, BM points): up to k = 64
 #: the narrowest that holds every centroid, past it 64 or 128, whichever pads
@@ -284,12 +289,24 @@ def assign_and_partials(points: torch.Tensor, centroids: torch.Tensor
     return (a, *onehot_partials(points, a, centroids.shape[0]))
 
 
+def _f32_tensor(arr: np.ndarray, device: "torch.device | str"
+                ) -> torch.Tensor:
+    host = np.array(arr, dtype=np.float32, order="C")   # owned, writable
+    return torch.from_numpy(host).to(device)
+
+
 def centroids_from_numpy(arr: np.ndarray, device: "torch.device | str"
                          ) -> torch.Tensor:
     """The JAX package's centroids (a numpy array, as its ``.npy`` files
-    hold them) as the port's contiguous f32 tensor on ``device``."""
-    host = np.array(arr, dtype=np.float32, order="C")   # owned, writable
-    return torch.from_numpy(host).to(device)
+    hold them) as the port's contiguous f32 tensor on ``device``: a map
+    task's upload of a centroid file, counted."""
+    centroids_from_numpy.uploads += 1
+    return _f32_tensor(arr, device)
+
+
+#: map-side centroid uploads since the last reset (chip_smoke.py reads and
+#: zeroes it, as it does the launch counts)
+centroids_from_numpy.uploads = 0
 
 
 # ----------------------------------------------------------------- mapper
@@ -318,19 +335,34 @@ def _load_centroids(conf: Any) -> np.ndarray:
 
 def clear_centroid_cache() -> None:
     """Drop the host and device copies of every centroid file: call it
-    between independent jobs that rewrite one centroid file."""
+    between independent jobs that rewrite one centroid file. Rounds that
+    version their centroid path (``cents-r{round}.npy``) need no clear
+    between rounds: call :func:`clear_pipeline_caches` once at the end."""
     from tpumr_torch.ops.devcache import clear_device_cache
     _centroid_cache.clear()
     clear_device_cache("kmeans-centroids:")
 
 
+def clear_pipeline_caches() -> None:
+    """Teardown of versioned rounds: one sweep of every round's centroid
+    entries, host and device. During the rounds nothing is cleared: each
+    round's centroids have a tag of their own, and the update reducer
+    pre-seeds the next round's. The same sweep as
+    :func:`clear_centroid_cache`; the name says when to call it (once, at
+    the end, not once per round)."""
+    clear_centroid_cache()
+
+
 def _device_centroids(conf: Any, device: torch.device) -> torch.Tensor:
-    """The centroids on ``device``, uploaded once per (file, device)."""
+    """The centroids on ``device``, uploaded once per (file, device). A hit
+    (a pre-seeded round included) reads no file."""
     from tpumr_torch.ops.devcache import device_cached
-    host = _load_centroids(conf)
-    tag = f"kmeans-centroids:{conf.get('tpumr.kmeans.centroids')}"
-    return device_cached(tag, device,
-                         lambda: centroids_from_numpy(host, device), conf)
+    path = conf.get("tpumr.kmeans.centroids")
+    if not path:
+        raise ValueError("tpumr.kmeans.centroids not set (path to .npy)")
+    return device_cached(
+        f"kmeans-centroids:{path}", device,
+        lambda: centroids_from_numpy(_load_centroids(conf), device), conf)
 
 
 def assign_and_partials_numpy(points: np.ndarray, centroids: np.ndarray,
@@ -382,6 +414,99 @@ class CentroidReducer(Reducer):
             total = s if total is None else total + s
             n += int(c)
         output.collect(key, (total / max(1, n)).tolist())
+
+
+#: the convergence counter of a round: the total centroid movement, in
+#: thousandths (counters are integers)
+SHIFT_COUNTER_GROUP = "KMeans"
+SHIFT_COUNTER = "CENTROID_SHIFT_MILLI"
+
+
+class KMeansCentroidUpdateReducer(Reducer):
+    """The reducer that closes a round of iterative K-Means (a copy of
+    ``tpumr.ops.kmeans.KMeansCentroidUpdateReducer``). It averages the
+    maps' (partial_sum, count) records in float64 and emits (cid, centroid)
+    as :class:`CentroidReducer` does; on ``close`` it writes the new
+    centroids as the next round's ``.npy`` (``tpumr.kmeans.centroids.out``,
+    by write-then-rename), adds the centroid shift to
+    ``KMeans/CENTROID_SHIFT_MILLI``, and puts the new centroids on the card
+    under the next round's tag, so that round's maps find them there.
+    Clusters without points keep their centroid. Needs
+    ``mapred.reduce.tasks=1``."""
+
+    #: pre-seeds of a next round's centroids since the last reset
+    #: (chip_smoke.py reads it)
+    preseeds = 0
+
+    def __init__(self) -> None:
+        self._sums: "dict[int, np.ndarray]" = {}
+        self._counts: "dict[int, int]" = {}
+        self._conf: Any = None
+        self._reporter: Any = None
+
+    def configure(self, conf: Any) -> None:
+        self._conf = conf
+        if conf.get_int("mapred.reduce.tasks", 1) != 1:
+            raise ValueError("KMeansCentroidUpdateReducer needs "
+                             "mapred.reduce.tasks=1: the centroid update "
+                             "must see every cluster")
+
+    def reduce(self, key, values, output, reporter):
+        self._reporter = reporter
+        total, n = None, 0
+        for s, c in values:
+            s = np.asarray(s, dtype=np.float64)
+            total = s if total is None else total + s
+            n += int(c)
+        cid = int(key)
+        self._sums[cid] = total
+        self._counts[cid] = n
+        output.collect(cid, (total / max(1, n)).tolist())
+
+    def abort(self) -> None:
+        """A failed attempt: a partly fed reducer publishes nothing."""
+        self._sums.clear()
+        self._counts.clear()
+
+    def close(self) -> None:
+        conf = self._conf
+        out_path = conf.get("tpumr.kmeans.centroids.out") if conf else None
+        if not out_path:
+            return   # not iterative: the output records are the result
+        import io
+
+        from tpumr_torch.fs.filesystem import FileSystem
+        prev = _load_centroids(conf)
+        new = prev.copy()
+        for cid, total in self._sums.items():
+            if 0 <= cid < new.shape[0] and self._counts[cid] > 0:
+                new[cid] = (total / self._counts[cid]).astype(np.float32)
+        # write-then-rename: no reader ever sees a partly written file
+        buf = io.BytesIO()
+        np.save(buf, np.ascontiguousarray(new))
+        fs = FileSystem.get(out_path, conf)
+        tmp = (f"{out_path}._"
+               f"{conf.get('tpumr.task.attempt.id') or 'local'}.tmp")
+        with fs.create(tmp) as f:
+            f.write(buf.getvalue())
+        if not fs.rename(tmp, out_path):
+            fs.delete(tmp)
+        shift = float(np.abs(new - prev).sum())
+        if self._reporter is not None:
+            self._reporter.incr_counter(SHIFT_COUNTER_GROUP, SHIFT_COUNTER,
+                                        int(round(shift * 1000)))
+        # the pre-seed, on the device the maps run on (their lookup key is
+        # (tag, str(points.device)), "cuda:0" on the card): a failure here
+        # is a fault on the device and fails the attempt
+        from tpumr_torch.ops.devcache import device_cached
+        device = select_device(conf, 0)
+        device_cached(f"kmeans-centroids:{out_path}", device,
+                      lambda: self._preseed(new, device), conf)
+
+    @staticmethod
+    def _preseed(new: np.ndarray, device: torch.device) -> torch.Tensor:
+        KMeansCentroidUpdateReducer.preseeds += 1
+        return _f32_tensor(new, device)
 
 
 class KMeansAssignKernel(KernelMapper):

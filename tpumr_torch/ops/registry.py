@@ -6,21 +6,44 @@ Counterpart of ``tpumr/ops/registry.py``. A job names its kernel mapper in
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
 
 
-def fetch_to_host(states: "list[tuple[torch.Tensor, ...]]"
-                  ) -> "list[tuple[np.ndarray, ...]]":
+def _leaves(state: Any) -> "list[torch.Tensor]":
+    """The tensors of a state, in order: a tensor, or a tuple, list or dict
+    of states; any other leaf (a Python int) holds no tensor."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _leaves(s)]
+    if isinstance(state, dict):
+        return [t for s in state.values() for t in _leaves(s)]
+    return []
+
+
+def _rebuild(state: Any, arrays: Iterator[np.ndarray]) -> Any:
+    """``state`` with each tensor replaced by the next of ``arrays``."""
+    if isinstance(state, torch.Tensor):
+        return next(arrays)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_rebuild(s, arrays) for s in state)
+    if isinstance(state, dict):
+        return {k: _rebuild(s, arrays) for k, s in state.items()}
+    return state
+
+
+def fetch_to_host(states: "list[Any]") -> "list[Any]":
     """Every tensor of every state brought to the host in ONE device-to-host
     copy: the tensors are concatenated as bytes on the device, copied once
     (one synchronisation), and cut back into numpy arrays of their own
-    dtype and shape."""
-    flat = [t for state in states for t in state]
+    dtype and shape. A state is a tensor or a tuple, list or dict of them;
+    other leaves (matmul's ``row0``) come back as they are."""
+    flat = [t for state in states for t in _leaves(state)]
     if not flat:
-        return [tuple() for _ in states]
+        return list(states)
     blob = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
                       for t in flat]).cpu().numpy()
     arrays, pos = [], 0
@@ -30,11 +53,8 @@ def fetch_to_host(states: "list[tuple[torch.Tensor, ...]]"
         arrays.append(blob[pos:pos + nbytes].view(np_dtype).reshape(
             tuple(t.shape)))
         pos += nbytes
-    out, i = [], 0
-    for state in states:
-        out.append(tuple(arrays[i:i + len(state)]))
-        i += len(state)
-    return out
+    it = iter(arrays)
+    return [_rebuild(state, it) for state in states]
 
 
 class KernelMapper:
@@ -42,9 +62,13 @@ class KernelMapper:
 
     ``map_batch_launch(batch, conf, task)`` takes a :class:`DenseBatch`
     whose ``values`` tensor lies on the device, enqueues the kernel and
-    returns a tuple of device tensors without waiting for them;
-    ``map_batch_drain(fetched, conf, task)`` turns that tuple, fetched to
-    the host as numpy arrays, into the task's few (key, value) records.
+    returns its state (device tensors in a tuple or dict, beside plain
+    Python values) without waiting for them;
+    ``map_batch_drain(fetched, conf, task)`` turns that state, fetched to
+    the host with numpy arrays for tensors, into the task's (key, value)
+    records. A kernel whose output a dense output file will hold offers it
+    for the output chain through ``device_output_rows(state)``
+    (``tpumr_torch/mapred/device_output.py``).
     The runner fetches a whole window of tasks' states in one copy
     (:func:`fetch_to_host`). ``map_batch_cpu(batch, conf, task)`` is the
     vectorized host twin for CPU map slots, on a numpy batch.
@@ -53,8 +77,7 @@ class KernelMapper:
     #: registry name
     name: str = ""
 
-    def map_batch_launch(self, batch: Any, conf: Any, task: Any
-                         ) -> "tuple[torch.Tensor, ...]":
+    def map_batch_launch(self, batch: Any, conf: Any, task: Any) -> Any:
         raise NotImplementedError
 
     def map_batch_drain(self, fetched: Any, conf: Any, task: Any
