@@ -32,7 +32,15 @@ round must give byte-identical centroids, and the examples kmeans program
 give round 3's centroids exactly. Matmul: the map-only blocked product of
 two 4,096 x 4,096 f32 matrices (4 maps) in f32 and in bf16 with f32 output,
 each against a float64 product, and a chain job D = C @ B that reads C from
-the card (0 bytes staged). It prints the last line
+the card (0 bytes staged). Text: bench.py's pi job (8 maps of 50,000,000
+samples, NLineInputFormat, one map per line) with its sampling and counting
+on the card, cold then warm (total exact, the estimate within 6 sigma of pi,
+one fetch per map, the same count bit for bit on the second run), the same
+job on the CPU batch runner, and python -m tpumr_torch.cli examples pi in a
+process of its own; then bench.py's 200 MB wordcount text through the
+wordcount kernel (RawTextInputFormat) and the grep kernel
+(TextInputFormat), each against an oracle over the whole file. It prints
+the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -116,6 +124,18 @@ MM_N, MM_ROWS = 4096, 1024
 #: chain's D is held against (A @ B) @ B by the same rule with
 #: (|A| . |B|) . |B|, which also covers C's own error carried through.
 MM_ERR = 1e-5
+#: bench.py's pi job (bench.py:607-649): maps of PI_SAMPLES samples each,
+#: seeds 0..PI_MAPS-1; and the CLI's (its own seeds from 1000)
+PI_MAPS, PI_SAMPLES = 8, 50_000_000
+PI_CLI_MAPS, PI_CLI_SAMPLES = 8, 1_000_000
+#: an estimate of pi from N samples must lie within PI_SIGMAS standard
+#: deviations 4 * sqrt(p (1 - p) / N), p = pi / 4, of pi
+PI_SIGMAS = 6
+#: bench.py's wordcount text (bench.py:568-601): WC_MB MiB of lines of 12
+#: words drawn from 4,096 by default_rng(1), no final newline; and the grep
+#: pattern run over it (100 distinct matches)
+WC_MB, WC_WORDS = 200, 4096
+GREP_PATTERN = "word00[0-9]{2}"
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W), FLOP/s
 PEAK_BF16_FLOP_PER_S = 989e12
 #: the fused kernel's sums against a float64 sum over its own ids: within
@@ -906,6 +926,260 @@ def matmul_phase() -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def pi_sigma(samples: int) -> float:
+    p = np.pi / 4
+    return 4 * float(np.sqrt(p * (1 - p) / samples))
+
+
+def check_pi(label: str, inside: int, total: int) -> float:
+    est = 4.0 * inside / total
+    check(abs(est - np.pi) <= PI_SIGMAS * pi_sigma(total),
+          f"{label}: estimate {est} is {abs(est - np.pi):.3g} off pi, over "
+          f"{PI_SIGMAS} sigma ({PI_SIGMAS * pi_sigma(total):.3g})")
+    return est
+
+
+def read_pairs(path: str) -> dict:
+    """A text part file's key -> int value."""
+    out = {}
+    with open(path, "rb") as f:
+        for line in f.read().decode().splitlines():
+            k, _, v = line.partition("\t")
+            out[k] = int(v)
+    return out
+
+
+def text_conf(work: str, inp: str, out: str, fmt: str, kernel: str,
+              combine: bool = True):
+    from tpumr_torch.mapred.jobconf import JobConf
+    conf = JobConf()
+    conf.set_input_paths(f"file://{work}/{inp}")
+    conf.set_output_path(f"file://{work}/{out}")
+    conf.set("mapred.input.format.class",
+             f"tpumr_torch.mapred.input_formats.{fmt}")
+    conf.set_map_kernel(kernel)
+    conf.set("mapred.reducer.class",
+             "tpumr_torch.examples.basic.LongSumReducer")
+    if combine:
+        conf.set("mapred.combiner.class",
+                 "tpumr_torch.examples.basic.LongSumReducer")
+    conf.set_num_reduce_tasks(1)
+    return conf
+
+
+def job_counters(result) -> dict:
+    from tpumr_torch.core.counters import BackendCounter, TaskCounter
+    return {name: result.counters.value(group, name) for group, name in (
+        (TaskCounter.FRAMEWORK_GROUP, TaskCounter.MAP_INPUT_RECORDS),
+        (TaskCounter.FRAMEWORK_GROUP, TaskCounter.MAP_OUTPUT_RECORDS),
+        (TaskCounter.FRAMEWORK_GROUP, TaskCounter.COMBINE_OUTPUT_RECORDS),
+        (TaskCounter.FRAMEWORK_GROUP, TaskCounter.REDUCE_OUTPUT_RECORDS),
+        (BackendCounter.GROUP, BackendCounter.TPU_MAP_TASKS),
+        (BackendCounter.GROUP, BackendCounter.CPU_MAP_TASKS),
+        (BackendCounter.GROUP, BackendCounter.CPU_BATCH_MAP_TASKS),
+        (BackendCounter.GROUP, BackendCounter.TPU_MAP_MILLIS),
+        (BackendCounter.GROUP, BackendCounter.CPU_MAP_MILLIS),
+        (BackendCounter.GROUP, BackendCounter.TPU_DEVICE_BYTES_STAGED))}
+
+
+def pi_phase(work: str) -> dict:
+    """bench.py's pi job on the card, cold then warm: every map on the
+    device runner (NLineInputFormat has no read_batch, so no window), one
+    count per map (pi.count_inside) and one device-to-host fetch per map;
+    the total exact, the estimate within PI_SIGMAS sigma, the second run's
+    count equal to the first's. Then the same job on the CPU batch runner
+    (numpy), and one PI_SAMPLES block timed with CUDA events beside its
+    bytes bound (the draws written and read once)."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.device import DEVICE_KEY
+    from tpumr_torch.mapred.local_runner import run_job
+    from tpumr_torch.ops import pi, registry
+
+    with open(os.path.join(work, "seeds.txt"), "w") as f:
+        f.write("".join(f"{m} {PI_SAMPLES}\n" for m in range(PI_MAPS)))
+    real_fetch = registry.fetch_to_host
+    fetches = []
+
+    def counted_fetch(states):
+        fetches.append(len(states))
+        return real_fetch(states)
+
+    def conf_for(out: str):
+        conf = text_conf(work, "seeds.txt", out, "NLineInputFormat",
+                         "pi-sampler", combine=False)
+        conf.set("mapred.line.input.format.linespermap", 1)
+        return conf
+
+    rows, counts = [], []
+    registry.fetch_to_host = counted_fetch
+    try:
+        for kind in ("cold", "warm"):
+            conf = conf_for(f"pi-{kind}")
+            conf.set("tpumr.local.run.on.tpu", True)
+            fetches.clear()
+            pi.count_inside.launches = 0     # this run's count starts
+            t = time.monotonic()
+            result = run_job(conf)
+            secs = time.monotonic() - t
+            check(result.successful, f"pi {kind} job failed")
+            got = read_pairs(os.path.join(work, f"pi-{kind}", "part-00000"))
+            row = {"kind": kind, "seconds": secs, "maps": result.num_maps,
+                   "inside": got["inside"], "total": got["total"],
+                   "fetches": len(fetches),
+                   "blocks": pi.count_inside.launches,
+                   "counters": job_counters(result)}
+            row["estimate"] = check_pi(f"pi {kind}", got["inside"],
+                                       got["total"])
+            log("text_pi " + json.dumps(row))
+            check(got["total"] == PI_MAPS * PI_SAMPLES,
+                  f"pi {kind}: total {got['total']}")
+            check(result.num_maps == PI_MAPS and
+                  row["counters"][BackendCounter.TPU_MAP_TASKS] == PI_MAPS,
+                  f"pi {kind}: {row['counters']} for {PI_MAPS} maps")
+            check(row["fetches"] == PI_MAPS and row["blocks"] == PI_MAPS,
+                  f"pi {kind}: {row['fetches']} fetches and {row['blocks']} "
+                  f"blocks counted for {PI_MAPS} maps")
+            rows.append(row)
+            counts.append(got["inside"])
+    finally:
+        registry.fetch_to_host = real_fetch
+    check(counts[0] == counts[1], f"pi: the warm run counted {counts[1]}, "
+          f"the cold run {counts[0]}")
+
+    conf = conf_for("pi-cpu")
+    conf.set(DEVICE_KEY, "cpu")                  # the numpy batch maps
+    conf.set("tpumr.local.run.on.tpu", False)
+    t = time.monotonic()
+    result = run_job(conf)
+    cpu_secs = time.monotonic() - t
+    check(result.successful, "pi CPU batch job failed")
+    got = read_pairs(os.path.join(work, "pi-cpu", "part-00000"))
+    cpu = {"seconds": cpu_secs, "inside": got["inside"],
+           "total": got["total"], "counters": job_counters(result),
+           "estimate": check_pi("pi CPU batch", got["inside"], got["total"])}
+    log("text_pi_cpu " + json.dumps(cpu))
+    check(got["total"] == PI_MAPS * PI_SAMPLES and
+          cpu["counters"][BackendCounter.CPU_BATCH_MAP_TASKS] == PI_MAPS,
+          f"pi CPU batch: {cpu}")
+
+    dev = torch.device("cuda", 0)
+    block = {"samples": PI_SAMPLES,
+             "ms": time_ms(lambda: pi.count_inside(0, PI_SAMPLES, dev),
+                           iters=10),
+             "bound_ms": 16 * PI_SAMPLES / PEAK_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"}
+    log("text_pi_block " + json.dumps(block))
+    return {"jobs": rows, "cpu": cpu, "block": block}
+
+
+def pi_cli_phase() -> dict:
+    """python -m tpumr_torch.cli examples pi in a process of its own (its
+    default mem:// work dir): the printed estimate within PI_SIGMAS sigma."""
+    cmd = [sys.executable, "-m", "tpumr_torch.cli", "examples", "pi",
+           str(PI_CLI_MAPS), str(PI_CLI_SAMPLES)]
+    t = time.monotonic()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=600)
+    secs = time.monotonic() - t
+    check(proc.returncode == 0, f"examples pi exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("Estimated value of Pi is ")]
+    check(len(lines) == 1, f"examples pi printed {proc.stdout[-500:]!r}")
+    est = float(lines[0].rsplit(" ", 1)[1])
+    total = PI_CLI_MAPS * PI_CLI_SAMPLES
+    check(abs(est - np.pi) <= PI_SIGMAS * pi_sigma(total),
+          f"examples pi: estimate {est} is over {PI_SIGMAS} sigma off pi")
+    row = {"seconds": secs, "estimate": est, "samples": total}
+    log("text_pi_cli " + json.dumps(row))
+    return row
+
+
+def write_text(work: str) -> bytes:
+    """bench.py:572-582's text, byte for byte: WC_MB MiB of lines of 12 of
+    WC_WORDS words from default_rng(1), no final newline."""
+    words = [f"word{i:04d}".encode() for i in range(WC_WORDS)]
+    rng = np.random.default_rng(1)
+    line = b" ".join(words[i] for i in rng.integers(0, WC_WORDS, 12)) + b"\n"
+    reps = WC_MB * 1024 * 1024 // len(line)
+    idx = rng.integers(0, WC_WORDS, size=(reps, 12))
+    data = b"\n".join(b" ".join(words[j] for j in r) for r in idx)
+    with open(os.path.join(work, "text.txt"), "wb") as f:
+        f.write(data)
+    return data
+
+
+def text_splits(size: int, block: int = 64 << 20) -> int:
+    """Splits of one local file of ``size`` bytes and one map hint: blocks
+    of 64 MiB, a tail under 1.1 blocks riding with the last."""
+    n, rest = 1, size
+    while rest / block > 1.1:
+        n, rest = n + 1, rest - block
+    return n
+
+
+def text_jobs_phase(work: str) -> dict:
+    """The wordcount kernel over the text's RawTextInputFormat splits and
+    the grep kernel over its TextInputFormat splits, on the card's device
+    runner (host kernels: one by one, no window), each part file against an
+    oracle over the whole file: collections.Counter(data.split()), and
+    re.finditer line by line."""
+    import re
+    from collections import Counter
+
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.mapred.local_runner import run_job
+    t = time.monotonic()
+    data = write_text(work)
+    log(f"data: {len(data)} bytes of text written in "
+        f"{time.monotonic() - t:.3f}s")
+    rows = {}
+    for label, fmt in (("wordcount", "RawTextInputFormat"),
+                       ("grep", "TextInputFormat")):
+        conf = text_conf(work, "text.txt", f"{label}-out", fmt, label)
+        conf.set("tpumr.grep.pattern", GREP_PATTERN)
+        t = time.monotonic()
+        result = run_job(conf)
+        secs = time.monotonic() - t
+        check(result.successful, f"{label} job failed")
+        got = read_pairs(os.path.join(work, f"{label}-out", "part-00000"))
+        t = time.monotonic()
+        if label == "wordcount":
+            want = {w.decode(): c for w, c in Counter(data.split()).items()}
+        else:
+            regex = re.compile(GREP_PATTERN.encode())
+            want = Counter()
+            for text_line in data.split(b"\n"):
+                for m in regex.finditer(text_line):
+                    want[m.group(0).decode()] += 1
+        row = {"seconds": secs, "mb_per_s": len(data) / secs / 1e6,
+               "bytes": len(data), "maps": result.num_maps,
+               "distinct": len(got), "records": sum(got.values()),
+               "oracle_seconds": time.monotonic() - t,
+               "counters": job_counters(result)}
+        log(f"text_{label} " + json.dumps(row))
+        check(got == dict(want), f"{label}: the part file differs from the "
+              f"oracle ({len(got)} keys, {len(want)} expected)")
+        check(result.num_maps == text_splits(len(data)) and
+              row["counters"][BackendCounter.TPU_MAP_TASKS]
+              == result.num_maps, f"{label}: {result.num_maps} maps, "
+              f"{row['counters']}")
+        rows[label] = row
+    return rows
+
+
+def text_phase() -> dict:
+    """pi on the card, the CLI's pi, and wordcount and grep over 200 MB."""
+    work = tempfile.mkdtemp(prefix="tpumr_torch-text-")
+    try:
+        out = pi_phase(work)
+        out["cli"] = pi_cli_phase()
+        out |= text_jobs_phase(work)
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_warm_job(work: str) -> None:
     """One more warm job under torch.profiler: device time by kernel
     against the job's wall time, written under chiprun_out/."""
@@ -1028,6 +1302,7 @@ def main() -> None:
     job2 = second_job(km)
     job3 = third_job(km)
     matmul_phase()
+    text_phase()
     f, a = fused["main"], shapes["job2"]
     kernels = [{
         "name": "kmeans_assign_partials", "route": "cuda",

@@ -14,6 +14,8 @@ class TaskCounter:
     MAP_INPUT_RECORDS = "MAP_INPUT_RECORDS"
     MAP_OUTPUT_RECORDS = "MAP_OUTPUT_RECORDS"
     MAP_OUTPUT_BYTES = "MAP_OUTPUT_BYTES"
+    COMBINE_INPUT_RECORDS = "COMBINE_INPUT_RECORDS"
+    COMBINE_OUTPUT_RECORDS = "COMBINE_OUTPUT_RECORDS"
     REDUCE_INPUT_GROUPS = "REDUCE_INPUT_GROUPS"
     REDUCE_INPUT_RECORDS = "REDUCE_INPUT_RECORDS"
     REDUCE_OUTPUT_RECORDS = "REDUCE_OUTPUT_RECORDS"
@@ -52,6 +54,14 @@ class Counters:
     def value(self, group: str, name: str) -> int:
         with self._lock:
             return self._values.get((group, name), 0)
+
+    def to_dict(self) -> dict[str, dict[str, int]]:
+        """{group: {name: value}}, as ``tpumr.core.counters.Counters``."""
+        out: dict[str, dict[str, int]] = {}
+        with self._lock:
+            for (group, name), v in sorted(self._values.items()):
+                out.setdefault(group, {})[name] = v
+        return out
 
     def merge(self, other: "Counters") -> None:
         """Add every counter of ``other`` into this set."""

@@ -1,4 +1,6 @@
 from tpumr_torch.fs.filesystem import FileStatus, FileSystem, Path
+from tpumr_torch.fs.inmem import InMemoryFileSystem
 from tpumr_torch.fs.local import LocalFileSystem
 
-__all__ = ["FileStatus", "FileSystem", "LocalFileSystem", "Path"]
+__all__ = ["FileStatus", "FileSystem", "InMemoryFileSystem",
+           "LocalFileSystem", "Path"]

@@ -1,12 +1,14 @@
-"""FileSystem: scheme-dispatched paths and file status.
+"""FileSystem: scheme-dispatched paths, file status and block locations.
 
-Counterpart of ``tpumr/fs/filesystem.py``, trimmed to what the K-Means job
-path uses. The port has one scheme, ``file://`` (``tpumr_torch/fs/local.py``);
-``FileSystem.get`` raises for any other.
+Counterpart of ``tpumr/fs/filesystem.py``, trimmed to what the port's job
+paths use. The port has two schemes, ``file://`` (``tpumr_torch/fs/local.py``)
+and ``mem://`` (``tpumr_torch/fs/inmem.py``); ``FileSystem.get`` raises for
+any other.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import posixpath
 import re
 import time
@@ -53,7 +55,18 @@ class FileStatus:
     path: Path
     length: int = 0
     is_dir: bool = False
+    #: the split planner's block size (64 MB unless the filesystem says)
+    block_size: int = 64 * 1024 * 1024
     mtime: float = field(default_factory=time.time)
+
+
+@dataclass
+class BlockLocation:
+    """Hosts holding bytes [offset, offset + length) of a file: the
+    locality hints a split carries."""
+    hosts: list[str]
+    offset: int
+    length: int
 
 
 class FileSystem(ABC):
@@ -78,6 +91,11 @@ class FileSystem(ABC):
             fs = cls._cache[scheme] = impl()
         return fs
 
+    @classmethod
+    def clear_cache(cls) -> None:
+        """Forget every instance (a ``mem://`` filesystem's files with it)."""
+        cls._cache.clear()
+
     @abstractmethod
     def open(self, path: "str | Path") -> BinaryIO: ...
 
@@ -101,6 +119,30 @@ class FileSystem(ABC):
 
     @abstractmethod
     def rename(self, src: "str | Path", dst: "str | Path") -> bool: ...
+
+    def get_block_locations(self, path: "str | Path", offset: int,
+                            length: int) -> list[BlockLocation]:
+        """One block on ``localhost``: a local filesystem places nothing."""
+        return [BlockLocation(["localhost"], offset, length)]
+
+    def glob_status(self, pattern: "str | Path") -> list[FileStatus]:
+        """The files and directories matching ``pattern``, whose components
+        may hold ``*``, ``?`` and ``[...]``, sorted by path."""
+        pat = Path(pattern)
+        base = Path(pat)
+        base.path = "/"
+        candidates = [base]
+        for comp in [c for c in pat.path.split("/") if c]:
+            nxt: list[Path] = []
+            for c in candidates:
+                if not re.search(r"[*?\[]", comp):
+                    nxt.append(c.child(comp))
+                elif self.exists(c) and self.get_status(c).is_dir:
+                    nxt += [st.path for st in self.list_status(c)
+                            if fnmatch.fnmatchcase(st.path.name, comp)]
+            candidates = nxt
+        return sorted((self.get_status(c) for c in candidates
+                       if self.exists(c)), key=lambda s: str(s.path))
 
     def read_bytes(self, path: "str | Path") -> bytes:
         with self.open(path) as f:

@@ -1,8 +1,8 @@
 """User-facing MapReduce API: reporter, collector, mapper, reducer, runner
 and partitioner contracts.
 
-Counterpart of ``tpumr/mapred/api.py``, trimmed to what the K-Means job
-path uses.
+Counterpart of ``tpumr/mapred/api.py``, trimmed to what the port's job
+paths use.
 """
 
 from __future__ import annotations
@@ -46,6 +46,11 @@ class Mapper(JobConfigurable):
         raise NotImplementedError
 
 
+class IdentityMapper(Mapper):
+    def map(self, key, value, output, reporter):
+        output.collect(key, value)
+
+
 class Reducer(JobConfigurable):
     def reduce(self, key: Any, values: Iterator[Any], output: OutputCollector,
                reporter: Reporter) -> None:
@@ -59,12 +64,31 @@ class IdentityReducer(Reducer):
 
 
 class MapRunnable(JobConfigurable):
-    """Runs a map task's whole input; device placement arrives through
-    ``task_ctx``."""
+    """Runs a map task's whole input: the split's record ``reader`` (a lazy
+    iterator of (key, value), read only by a runner that needs records);
+    device placement arrives through ``task_ctx``."""
 
-    def run(self, output: OutputCollector, reporter: Reporter,
+    def run(self, reader: Any, output: OutputCollector, reporter: Reporter,
             task_ctx: Any = None) -> None:
         raise NotImplementedError
+
+
+class MapRunner(MapRunnable):
+    """The per-record runner (``tpumr.mapred.api.MapRunner``): the job's
+    mapper class (``mapred.mapper.class``, else the identity) over every
+    record of the reader."""
+
+    def configure(self, conf: Any) -> None:
+        from tpumr_torch.utils.reflection import new_instance
+        self.mapper = new_instance(conf.get_mapper_class() or IdentityMapper,
+                                   conf)
+
+    def run(self, reader, output, reporter, task_ctx=None) -> None:
+        try:
+            for key, value in reader:
+                self.mapper.map(key, value, output, reporter)
+        finally:
+            self.mapper.close()
 
 
 class HashPartitioner(JobConfigurable):

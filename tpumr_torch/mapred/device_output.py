@@ -121,18 +121,22 @@ def lookup(conf: Any, device: torch.device, fs: Any, path: str, size: int,
     """The whole-file resident tensor for ``path`` on ``device``, or None.
     Costs one 8 KB read, and nothing until this process has published an
     output; the first hit per on-disk identity also reads the whole file to
-    check the publisher's sha1."""
+    check the publisher's sha1. A read that raises ``OSError`` gives None:
+    the consumer then reads the file through its input format."""
     if not _published_any:
         return None
     if not conf.get_boolean("tpumr.tpu.output.cache", True):
         return None
-    with fs.open(path) as f:
-        head = f.read(_FP_WINDOW)
-        if size > _FP_WINDOW:
-            f.seek(max(_FP_WINDOW, size - _FP_WINDOW))
-            tail = f.read(_FP_WINDOW)
-        else:
-            tail = b""
+    try:
+        with fs.open(path) as f:
+            head = f.read(_FP_WINDOW)
+            if size > _FP_WINDOW:
+                f.seek(max(_FP_WINDOW, size - _FP_WINDOW))
+                tail = f.read(_FP_WINDOW)
+            else:
+                tail = b""
+    except OSError:
+        return None              # the caller reads the file itself
     fp = fingerprint(head, tail, size, mtime)
     entry = _cache(conf, device).get(("devout", fp))
     if entry is None:
@@ -145,9 +149,12 @@ def lookup(conf: Any, device: torch.device, fs: Any, path: str, size: int,
         with vlock:
             if ident not in _verified:
                 h = hashlib.sha1()
-                with fs.open(path) as f:
-                    for chunk in iter(lambda: f.read(1 << 20), b""):
-                        h.update(chunk)
+                try:
+                    with fs.open(path) as f:
+                        for chunk in iter(lambda: f.read(1 << 20), b""):
+                            h.update(chunk)
+                except OSError:
+                    return None
                 if h.hexdigest() != sha:
                     return None          # an alias: read the file instead
                 with _lock:

@@ -1,19 +1,25 @@
-"""Device map runner: stages a whole dense split onto the card and runs the
-job's kernel mapper on it.
+"""Device map runner: stages a whole split and runs the job's kernel mapper
+on it.
 
 Counterpart of ``tpumr/mapred/tpu_runner.py``:
 
 - :class:`DeviceSplitCache` is ``HbmSplitCache`` (``:40-106``), keyed by
   torch device: a split staged once stays resident across the tasks and
   jobs of the process, so later rounds skip both the read and the copy;
-- :func:`stage_batch` is the dense branch of ``stage_batch`` (``:322-390``),
-  with the output chain's lookup (``device_output``) on a split-cache miss;
-- :meth:`GpuMapRunner.run` is ``TpuMapRunner.run`` with its prefetch drain
-  (``:205-250``), offering a kernel's device rows to a dense output writer
-  (``_offer_device_rows``, ``:401-440``);
+- :func:`stage_batch` is ``stage_batch`` (``:322-390``): a dense split goes
+  onto the device through the split cache, with the output chain's lookup
+  (``device_output``) on a miss; any other split whose format has
+  ``read_batch`` is read whole and stays on the host; otherwise the record
+  reader is drained into a ``RecordBatch``;
+- :meth:`GpuMapRunner.run` is ``TpuMapRunner.run`` (``:205-310``): a
+  window's prefetched output is drained; else a kernel with the launch
+  protocol is launched, fetched once and drained, and a host kernel's
+  ``map_batch`` runs on the host batch. A kernel's device rows are offered
+  to a dense output writer (``_offer_device_rows``, ``:401-440``);
 - :func:`prelaunch_device_maps` is the window path (``:442-514``): it
   stages and launches a window of map tasks, then brings every task's
-  output to the host in ONE copy, one synchronisation per window;
+  output to the host in ONE copy, one synchronisation per window; it
+  returns None for a job the window cannot take;
 - :class:`CpuBatchMapRunner` is the CPU-slot runner (``:517-550``).
 """
 
@@ -30,7 +36,8 @@ import torch
 from tpumr_torch.core.counters import BackendCounter, TaskCounter
 from tpumr_torch.device import select_device
 from tpumr_torch.fs.filesystem import FileSystem
-from tpumr_torch.io.recordbatch import DenseBatch
+from tpumr_torch.io.recordbatch import DenseBatch, RecordBatch
+from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred import device_output
 from tpumr_torch.mapred.api import MapRunnable
 from tpumr_torch.mapred.split import DenseSplit, InputSplit
@@ -128,20 +135,42 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
-def stage_batch(conf: Any, task: Any, device: "torch.device | None"
-                ) -> tuple[DenseBatch, int]:
-    """The task's dense split as a batch. With a ``device`` the values are
-    a tensor on it, through the device split cache (a hit skips the read
-    and the copy); ``device=None`` keeps them on the host (CPU slots).
-    Returns (batch, bytes actually copied to the device)."""
+def stage_batch(conf: Any, reader: Any, task: Any,
+                device: "torch.device | None"
+                ) -> "tuple[DenseBatch | RecordBatch, bool, int]":
+    """The task's split as one batch. A format with ``read_batch`` hands the
+    split over whole: a dense split, given a ``device``, as a tensor on it
+    through the device split cache (a hit skips the read and the copy);
+    any other split as a host batch. Otherwise the record ``reader`` is
+    drained into a ``RecordBatch`` of the values (strings as UTF-8, other
+    values serialized; keys dropped). Returns (batch, whether the reader
+    counted the records, bytes staged): a host batch counts its ``nbytes``,
+    as the JAX package counts them."""
     in_fmt = new_instance(conf.get_input_format(), conf)
-    split = InputSplit.from_dict(task.split)
-    if not isinstance(split, DenseSplit):
-        raise ValueError(f"the port stages dense splits only, got "
-                         f"{type(split).__name__}")
-    if device is None:
+    split = (InputSplit.from_dict(task.split)
+             if task is not None and task.split else None)
+    if split is not None and getattr(in_fmt, "read_batch", None) is not None:
+        if device is not None and isinstance(split, DenseSplit):
+            batch, staged = _stage_dense(conf, in_fmt, split, device)
+            return batch, False, staged
         batch = in_fmt.read_batch(split, conf)
-        return batch, batch.nbytes
+        return batch, False, batch.nbytes
+    values = []
+    for _k, v in reader:
+        if isinstance(v, (bytes, bytearray)):
+            values.append(bytes(v))
+        elif isinstance(v, str):
+            values.append(v.encode("utf-8"))
+        else:
+            values.append(serialize(v))
+    batch = RecordBatch.from_values(values)
+    return batch, True, batch.nbytes
+
+
+def _stage_dense(conf: Any, in_fmt: Any, split: DenseSplit,
+                 device: torch.device) -> tuple[DenseBatch, int]:
+    """A dense split as a tensor on ``device``. Returns (batch, bytes
+    actually copied to the device)."""
     if not conf.get_boolean("tpumr.tpu.split.cache", True):
         batch = in_fmt.read_batch(split, conf)
         return (DenseBatch(to_device(batch.values, device), batch.ids,
@@ -190,10 +219,14 @@ def _kernel(conf: Any):
 
 
 class GpuMapRunner(MapRunnable):
+    """The accelerator slot's runner. On ``cuda`` a host kernel's maps run
+    here too (``local_runner.maps_on_device``): they count as
+    ``TPU_MAP_TASKS``, and their ``map_batch`` runs on the host batch."""
+
     def configure(self, conf: Any) -> None:
         self.conf = conf
 
-    def run(self, output, reporter, task_ctx=None) -> None:
+    def run(self, reader, output, reporter, task_ctx=None) -> None:
         conf = self.conf
         kernel = _kernel(conf)
         pre = task_ctx.device_prefetch if task_ctx is not None else None
@@ -214,18 +247,25 @@ class GpuMapRunner(MapRunnable):
                 output.collect(key, value)
             return
         device = select_device(conf, task_ctx.tpu_device_id)
-        batch, staged_bytes = stage_batch(conf, task_ctx, device)
-        reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
-                              TaskCounter.MAP_INPUT_RECORDS,
-                              batch.num_records)
+        batch, counted, staged_bytes = stage_batch(conf, reader, task_ctx,
+                                                   device)
+        if not counted:     # the record reader counts its own records
+            reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                                  TaskCounter.MAP_INPUT_RECORDS,
+                                  batch.num_records)
         reporter.incr_counter(BackendCounter.GROUP,
                               BackendCounter.TPU_DEVICE_BYTES_STAGED,
                               staged_bytes)
-        from tpumr_torch.ops.registry import fetch_to_host
-        state = kernel.map_batch_launch(batch, conf, task_ctx)
-        _offer_device_rows(kernel, state, conf)
-        for key, value in kernel.map_batch_drain(fetch_to_host([state])[0],
-                                                 conf, task_ctx):
+        state = (kernel.map_batch_launch(batch, conf, task_ctx)
+                 if type(kernel).supports_launch() else None)
+        if state is not None:
+            from tpumr_torch.ops.registry import fetch_to_host
+            _offer_device_rows(kernel, state, conf)
+            records = kernel.map_batch_drain(fetch_to_host([state])[0], conf,
+                                             task_ctx)
+        else:
+            records = kernel.map_batch(batch, conf, task_ctx)
+        for key, value in records:
             output.collect(key, value)
 
 
@@ -258,7 +298,7 @@ class DevicePrefetch:
 
 
 def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
-                          ) -> "list[DevicePrefetch]":
+                          ) -> "list[DevicePrefetch] | None":
     """Stage and launch a window of map tasks' kernels on one device, then
     fetch EVERY task's output in one device-to-host copy.
 
@@ -266,20 +306,33 @@ def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
     ``tasks`` only: the window's staged inputs stay on the device until the
     fetch, so the window closes once it has copied
     ``tpumr.tpu.pipeline.window.mb`` (always taking at least one task).
-    Split-cache hits copy nothing and do not count."""
+    Split-cache hits copy nothing and do not count. Returns None where the
+    window cannot take the job, whose maps then run one by one: a kernel
+    without the launch protocol (``wordcount``, ``grep``), an input format
+    without ``read_batch`` (``pi``'s ``NLineInputFormat``), a task without
+    a split, or tasks on more than one device."""
     from tpumr_torch.ops.registry import fetch_to_host
     kernel = _kernel(conf)
+    if not type(kernel).supports_launch():
+        return None
+    if getattr(new_instance(conf.get_input_format(), conf), "read_batch",
+               None) is None:
+        return None
+    if any(not t.split for t in tasks):
+        return None
     dev_ids = {t.tpu_device_id for t in tasks}
     if len(dev_ids) != 1:
-        raise ValueError(f"a window runs on one device, got slots {dev_ids}")
+        return None
     device = select_device(conf, dev_ids.pop())
     budget = conf.get_int("tpumr.tpu.pipeline.window.mb", 2048) << 20
     states: list[Any] = []
     meta: list[tuple[int, int, Any]] = []
     resident = 0
     for task in tasks:
-        batch, staged_bytes = stage_batch(conf, task, device)
+        batch, _counted, staged_bytes = stage_batch(conf, None, task, device)
         state = kernel.map_batch_launch(batch, conf, task)
+        if state is None:
+            return None
         states.append(state)
         meta.append((batch.num_records, staged_bytes,
                      _device_rows_of(kernel, state, conf)))
@@ -298,12 +351,13 @@ class CpuBatchMapRunner(MapRunnable):
     def configure(self, conf: Any) -> None:
         self.conf = conf
 
-    def run(self, output, reporter, task_ctx=None) -> None:
+    def run(self, reader, output, reporter, task_ctx=None) -> None:
         kernel = _kernel(self.conf)
-        batch, _ = stage_batch(self.conf, task_ctx, None)
-        reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
-                              TaskCounter.MAP_INPUT_RECORDS,
-                              batch.num_records)
+        batch, counted, _ = stage_batch(self.conf, reader, task_ctx, None)
+        if not counted:
+            reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                                  TaskCounter.MAP_INPUT_RECORDS,
+                                  batch.num_records)
         reporter.incr_counter(BackendCounter.GROUP,
                               BackendCounter.CPU_BATCH_MAP_TASKS)
         for key, value in kernel.map_batch_cpu(batch, self.conf, task_ctx):

@@ -1,7 +1,7 @@
 """JobConf: a Configuration with typed accessors for the job contract.
 
-Counterpart of ``tpumr/mapred/jobconf.py``, trimmed to what the K-Means job
-path uses. Key strings and defaults are the JAX package's
+Counterpart of ``tpumr/mapred/jobconf.py``, trimmed to what the port's job
+paths use. Key strings and defaults are the JAX package's
 (``tpumr/core/confkeys.py``), so a job configuration written for it runs
 unchanged here.
 """
@@ -17,6 +17,7 @@ DEFAULTS: dict[str, Any] = {
     "mapred.reduce.tasks": 1,
     "mapred.map.tasks": 1,
     "io.sort.mb": 100,
+    "io.sort.spill.percent": 0.8,
 }
 
 
@@ -47,6 +48,23 @@ class JobConf(Configuration):
 
     # ------------------------------------------------------------ classes
 
+    def set_mapper_class(self, cls: type) -> None:
+        self.set_class("mapred.mapper.class", cls)
+
+    def get_mapper_class(self) -> "type | None":
+        return self.get_class("mapred.mapper.class")
+
+    def set_combiner_class(self, cls: type) -> None:
+        self.set_class("mapred.combiner.class", cls)
+
+    def get_combiner_class(self) -> "type | None":
+        return self.get_class("mapred.combiner.class")
+
+    def get_map_runner_class(self) -> type:
+        """The per-record runner of a CPU map task."""
+        from tpumr_torch.mapred.api import MapRunner
+        return self.get_class("mapred.map.runner.class", MapRunner)
+
     def set_reducer_class(self, cls: type) -> None:
         self.set_class("mapred.reducer.class", cls)
 
@@ -61,11 +79,8 @@ class JobConf(Configuration):
         self.set_class("mapred.input.format.class", cls)
 
     def get_input_format(self) -> type:
-        cls = self.get_class("mapred.input.format.class")
-        if cls is None:
-            raise ValueError("mapred.input.format.class not set: the port "
-                             "reads DenseInputFormat input only")
-        return cls
+        from tpumr_torch.mapred.input_formats import TextInputFormat
+        return self.get_class("mapred.input.format.class", TextInputFormat)
 
     def set_output_format(self, cls: type) -> None:
         self.set_class("mapred.output.format.class", cls)
@@ -94,3 +109,7 @@ class JobConf(Configuration):
     @property
     def sort_mb(self) -> int:
         return self.get_int("io.sort.mb")
+
+    @property
+    def spill_percent(self) -> float:
+        return self.get_float("io.sort.spill.percent")

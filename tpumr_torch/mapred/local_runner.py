@@ -6,18 +6,21 @@ another. A kernel mapper's tasks run through windows (the path of
 ``local_runner.py:108-130``): a window of tasks is staged and launched back
 to back, every task's output comes to the host in one copy
 (``gpu_runner.prelaunch_device_maps``), and each task is then drained
-through the normal collect/spill path. A map-only job
-(``mapred.reduce.tasks=0``) commits each map attempt's output and has no
-reduce phase.
+through the normal collect/spill path. Where the window cannot take the job
+(a host kernel, an input format without ``read_batch``), the rest of the
+job's maps run one by one, each through the per-task device path. A
+map-only job (``mapred.reduce.tasks=0``) commits each map attempt's output
+and has no reduce phase.
 
 The entry points run on ``cuda`` unless the caller asks for the CPU with
 ``device="cpu"`` or the conf key ``tpumr_torch.device=cpu``
 (``tpumr_torch/device.py``). The device decides where a kernel mapper's
-tasks run (:func:`maps_on_device`): on ``cuda`` always through the windows
-and the CUDA kernel, whatever ``tpumr.local.run.on.tpu`` says. Only on the
-CPU does that key choose between the same windows on CPU tensors (set) and
-the numpy batch runner (unset), as the JAX package's key chooses between
-its device and its CPU slots.
+tasks run (:func:`maps_on_device`): on ``cuda`` always through the device
+runner, whatever ``tpumr.local.run.on.tpu`` says, so a host kernel's maps
+(``wordcount``, ``grep``) count as ``TPU_MAP_TASKS`` there. Only on the CPU
+does that key choose between the device runner on CPU tensors (set) and the
+CPU slots' runners (unset), as the JAX package's key chooses between its
+device and its CPU slots.
 """
 
 from __future__ import annotations
@@ -112,13 +115,15 @@ class LocalJobRunner:
                   if run_on_tpu else 0)
         lo = 0
         while lo < len(tasks):
+            hi = len(tasks)
             if window > 0:
                 pre = prelaunch_device_maps(conf, tasks[lo:lo + window])
-                for t, p in zip(tasks[lo:], pre):
-                    t.device_prefetch = p
-                hi = lo + len(pre)   # the byte budget may shorten a window
-            else:
-                hi = len(tasks)
+                if pre is None:
+                    window = 0       # not for the window: one by one
+                else:
+                    for t, p in zip(tasks[lo:], pre):
+                        t.device_prefetch = p
+                    hi = lo + len(pre)   # the byte budget may shorten it
             for task in tasks[lo:hi]:
                 one_map(task)
             lo = hi

@@ -1,45 +1,54 @@
 """Map-side execution: run the split through its runner, partition and sort
-the output, write one IFile spill; or, in a map-only job, write through the
-job's output format.
+the output, combine it and write one IFile spill; or, in a map-only job,
+write through the job's output format.
 
 Counterpart of ``tpumr/mapred/map_task.py``. Every attempt runs on its own
-copy of the job conf carrying its identity (:func:`localize_task_conf`). A
-K-Means map task emits k records, so its output is written once, at the end
-of the task. Spilling several times and merging the spills is not ported: a
-map output that reaches the point where the JAX package would spill early
-(``io.sort.mb`` × ``io.sort.spill.percent``) raises instead.
+copy of the job conf carrying its identity (:func:`localize_task_conf`). The
+runner is chosen as the JAX package chooses it (``:248-265``, ``:438-451``):
+the device runner for an accelerator task; on a CPU slot the batch runner
+when the job names a kernel with a host twin (``map_batch_cpu``) and
+``tpumr.cpu.batch.map`` is not false, else the job's per-record runner over
+the split's counted reader (:func:`_counted_reader`). The task's output is
+written once, at its end, through the job's combiner where it has one
+(``MapOutputBuffer.flush``, the single spill of ``:106-145``). Spilling
+several times and merging the spills is not ported: a map output that
+reaches the point where the JAX package would spill early (``io.sort.mb`` ×
+``io.sort.spill.percent``) raises instead of writing a short output.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any
+from typing import Any, Iterator
 
 from tpumr_torch.core.counters import BackendCounter, TaskCounter
 from tpumr_torch.io import ifile
 from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred.api import OutputCollector, Reporter
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
+from tpumr_torch.mapred.split import InputSplit
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
 
 class MapOutputBuffer:
     """In-memory partitioned key/value buffer, written as one sorted
-    spill when the task ends."""
+    spill when the task ends, each partition through the job's combiner
+    where it has one."""
 
     def __init__(self, conf: Any, num_partitions: int, local_dir: str,
                  reporter: Reporter) -> None:
+        self.conf = conf
         self.n_parts = max(1, num_partitions)
         self.local_dir = local_dir
         self.reporter = reporter
         self.partitioner = new_instance(conf.get_partitioner_class(), conf)
         self.sort_key = conf.get_output_key_comparator().sort_key
+        self.combiner_cls = conf.get_combiner_class()
         self._buf: list[tuple[int, bytes, bytes]] = []
         self._bytes = 0
-        self._threshold = int(conf.sort_mb * 1024 * 1024 * conf.get_float(
-            "io.sort.spill.percent", 0.8))
+        self._threshold = int(conf.sort_mb * 1024 * 1024 * conf.spill_percent)
         os.makedirs(local_dir, exist_ok=True)
 
     def collect(self, key: Any, value: Any) -> None:
@@ -61,8 +70,10 @@ class MapOutputBuffer:
                                    len(kb) + len(vb))
 
     def flush(self) -> tuple[str, dict]:
-        """Sort by (partition, key) and write the task's one IFile.
-        Returns (path, index)."""
+        """Sort by (partition, key) and write the task's one IFile, each
+        non-empty output's partitions through the combiner
+        (``combine.combined_stream``). Returns (path, index)."""
+        from tpumr_torch.mapred.combine import combined_stream
         sk = self.sort_key
         self._buf.sort(key=lambda rec: (rec[0], sk(rec[1])))
         path = os.path.join(self.local_dir, "file.out")
@@ -71,9 +82,16 @@ class MapOutputBuffer:
             idx = 0
             for part in range(self.n_parts):
                 w.start_partition()
+                lo = idx
                 while idx < len(self._buf) and self._buf[idx][0] == part:
-                    w.append_raw(self._buf[idx][1], self._buf[idx][2])
                     idx += 1
+                records: Iterator[tuple[bytes, bytes]] = \
+                    (rec[1:] for rec in self._buf[lo:idx])
+                if self.combiner_cls is not None and self._buf:
+                    records = combined_stream(self.conf, self.combiner_cls,
+                                              sk, records, self.reporter)
+                for kb, vb in records:
+                    w.append_raw(kb, vb)
                 w.end_partition()
             index = w.close()
         if self._buf:
@@ -100,12 +118,12 @@ def localize_task_conf(conf: Any, task: Task) -> Any:
 
 def run_map_task(conf: Any, task: Task, local_dir: str,
                  reporter: "Reporter | None" = None) -> tuple[str, dict]:
-    """Execute one map attempt: the device runner for an accelerator task,
-    the CPU batch runner otherwise; collect into the buffer; write the
-    IFile. Returns (output_path, index). A map-only job
-    (``num_reduces == 0``) writes through the job's output format into the
-    committer's work dir instead and returns ``("", {})``."""
-    from tpumr_torch.mapred.gpu_runner import CpuBatchMapRunner, GpuMapRunner
+    """Execute one map attempt: its runner (module docstring) over the
+    split's counted reader; collect into the buffer; write the IFile.
+    Returns (output_path, index). A map-only job (``num_reduces == 0``)
+    writes through the job's output format into the committer's work dir
+    instead and returns ``("", {})``."""
+    from tpumr_torch.mapred.gpu_runner import GpuMapRunner
     reporter = reporter or Reporter()
     conf = localize_task_conf(conf, task)
     t0 = time.monotonic()
@@ -114,17 +132,21 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
         backend_tasks, backend_ms = (BackendCounter.TPU_MAP_TASKS,
                                      BackendCounter.TPU_MAP_MILLIS)
     else:
-        runner_cls = CpuBatchMapRunner
+        runner_cls = _cpu_runner_class(conf)
         backend_tasks, backend_ms = (BackendCounter.CPU_MAP_TASKS,
                                      BackendCounter.CPU_MAP_MILLIS)
     runner = new_instance(runner_cls, conf)
+    split = InputSplit.from_dict(task.split) if task.split else None
+    reader = _counted_reader(new_instance(conf.get_input_format(), conf),
+                             split, conf, reporter)
     if task.num_reduces == 0:
         wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
         writer = new_instance(conf.get_output_format(), conf) \
             .get_record_writer(conf, wd, task.partition)
         ok = False
         try:
-            runner.run(OutputCollector(writer.write), reporter, task_ctx=task)
+            runner.run(reader, OutputCollector(writer.write), reporter,
+                       task_ctx=task)
             ok = True
         finally:
             # a failed attempt aborts a writer that can (nothing written or
@@ -134,9 +156,33 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
         out: tuple[str, dict] = ("", {})
     else:
         buffer = MapOutputBuffer(conf, task.num_reduces, local_dir, reporter)
-        runner.run(OutputCollector(buffer.collect), reporter, task_ctx=task)
+        runner.run(reader, OutputCollector(buffer.collect), reporter,
+                   task_ctx=task)
         out = buffer.flush()
     reporter.incr_counter(BackendCounter.GROUP, backend_tasks)
     reporter.incr_counter(BackendCounter.GROUP, backend_ms,
                           int((time.monotonic() - t0) * 1000))
     return out
+
+
+def _cpu_runner_class(conf: Any) -> type:
+    """A CPU slot's runner: the batch runner for a job whose kernel has a
+    host twin (``map_batch_cpu``), unless ``tpumr.cpu.batch.map=false``
+    opts out; else the job's per-record runner."""
+    from tpumr_torch.mapred.gpu_runner import CpuBatchMapRunner
+    name = conf.get_map_kernel()
+    if name and conf.get_boolean("tpumr.cpu.batch.map", True):
+        from tpumr_torch.ops import get_kernel
+        if get_kernel(name).map_batch_cpu is not None:
+            return CpuBatchMapRunner
+    return conf.get_map_runner_class()
+
+
+def _counted_reader(in_fmt: Any, split: "InputSplit | None", conf: Any,
+                    reporter: Reporter) -> Iterator[tuple[Any, Any]]:
+    """The split's records, each counted in ``MAP_INPUT_RECORDS`` as it is
+    read. Lazy: a runner that stages the split whole never opens it."""
+    for k, v in in_fmt.get_record_reader(split, conf, reporter):
+        reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                              TaskCounter.MAP_INPUT_RECORDS)
+        yield k, v

@@ -96,12 +96,15 @@ class _DenseNpyWriter:
         if (rows is not None and tuple(rows.shape) == arr.shape
                 and device_output.numpy_dtype(rows.dtype) == arr.dtype):
             # the written file's mtime is part of the key; the commit
-            # rename keeps it
+            # rename keeps it. Without it nothing is published: residency
+            # is never needed for the file to be read
+            try:
+                mtime = self._fs.get_status(self._path).mtime
+            except OSError:
+                return
             head, tail, size = device_output.head_tail(data)
-            device_output.publish(
-                self._conf, rows, head, tail, size,
-                self._fs.get_status(self._path).mtime,
-                full_sha=hashlib.sha1(data).hexdigest())
+            device_output.publish(self._conf, rows, head, tail, size, mtime,
+                                  full_sha=hashlib.sha1(data).hexdigest())
 
     def abort(self) -> None:
         """A failed attempt writes no file and publishes nothing."""

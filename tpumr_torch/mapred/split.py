@@ -1,6 +1,7 @@
 """Input splits: what a map task reads, shipped to the task as a dict.
 
-Counterpart of ``tpumr/mapred/split.py`` (``InputSplit``, ``DenseSplit``).
+Counterpart of ``tpumr/mapred/split.py`` (``InputSplit``, ``FileSplit``,
+``DenseSplit``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,19 @@ class InputSplit:
     def from_dict(d: dict[str, Any]) -> "InputSplit":
         d = dict(d)
         return resolve_class(d.pop("type"))(**d)
+
+
+@dataclass
+class FileSplit(InputSplit):
+    """Bytes [start, start + split_length) of a file. A line reader owns
+    the lines that start in it (``input_formats.LineRecordReader``)."""
+    path: str = ""
+    start: int = 0
+    split_length: int = 0
+
+    @property
+    def length(self) -> int:
+        return self.split_length
 
 
 @dataclass

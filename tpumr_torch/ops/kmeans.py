@@ -490,7 +490,13 @@ class KMeansCentroidUpdateReducer(Reducer):
         with fs.create(tmp) as f:
             f.write(buf.getvalue())
         if not fs.rename(tmp, out_path):
-            fs.delete(tmp)
+            # a filesystem that refuses an existing destination keeps the
+            # first writer's file (the bytes are the same); the temp file
+            # must not linger, and failing to delete it fails nothing
+            try:
+                fs.delete(tmp)
+            except OSError:
+                pass
         shift = float(np.abs(new - prev).sum())
         if self._reporter is not None:
             self._reporter.incr_counter(SHIFT_COUNTER_GROUP, SHIFT_COUNTER,
@@ -511,6 +517,7 @@ class KMeansCentroidUpdateReducer(Reducer):
 
 class KMeansAssignKernel(KernelMapper):
     name = "kmeans-assign"
+    cpu_mapper_class = KMeansCpuMapper
 
     def map_batch_launch(self, batch, conf, task):
         """Enqueue assign + partials on the batch's device; return the

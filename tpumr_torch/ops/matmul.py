@@ -88,6 +88,7 @@ class MatmulCpuMapper(Mapper):
 
 class MatmulBlockKernel(KernelMapper):
     name = "matmul-block"
+    cpu_mapper_class = MatmulCpuMapper
 
     def map_batch_launch(self, batch, conf, task):
         """Enqueue ``C_block = A_block @ B`` on the batch's device; the state

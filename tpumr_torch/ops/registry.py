@@ -58,40 +58,56 @@ def fetch_to_host(states: "list[Any]") -> "list[Any]":
 
 
 class KernelMapper:
-    """A whole-batch device mapper.
+    """A whole-batch mapper.
 
-    ``map_batch_launch(batch, conf, task)`` takes a :class:`DenseBatch`
-    whose ``values`` tensor lies on the device, enqueues the kernel and
-    returns its state (device tensors in a tuple or dict, beside plain
-    Python values) without waiting for them;
-    ``map_batch_drain(fetched, conf, task)`` turns that state, fetched to
-    the host with numpy arrays for tensors, into the task's (key, value)
-    records. A kernel whose output a dense output file will hold offers it
-    for the output chain through ``device_output_rows(state)``
+    A device kernel implements the launch/drain protocol:
+    ``map_batch_launch(batch, conf, task)`` takes a staged batch (a
+    :class:`DenseBatch` whose ``values`` tensor lies on the device, or a
+    host :class:`RecordBatch`), enqueues its device work and returns its
+    state (device tensors in a tuple, list or dict, beside plain Python
+    values) without waiting for them; ``map_batch_drain(fetched, conf,
+    task)`` turns that state, fetched to the host with numpy arrays for
+    tensors, into the task's (key, value) records. The runner fetches a
+    whole window of tasks' states in one copy (:func:`fetch_to_host`). A
+    kernel whose output a dense output file will hold offers it for the
+    output chain through ``device_output_rows(state)``
     (``tpumr_torch/mapred/device_output.py``).
-    The runner fetches a whole window of tasks' states in one copy
-    (:func:`fetch_to_host`). ``map_batch_cpu(batch, conf, task)`` is the
-    vectorized host twin for CPU map slots, on a numpy batch.
+
+    A host kernel (``wordcount``, ``grep``) has no launch: it overrides
+    :meth:`map_batch`, which the runner calls on the host batch.
+    ``map_batch_cpu(batch, conf, task)`` is the vectorized host twin for
+    CPU map slots, on a numpy batch; ``cpu_mapper_class`` the per-record
+    mapper of the same job.
     """
 
     #: registry name
     name: str = ""
+    #: the per-record CPU mapper of a job that names this kernel
+    cpu_mapper_class: "type | None" = None
+    #: the vectorized host twin for CPU slots, where there is one
+    map_batch_cpu: Any = None
 
     def map_batch_launch(self, batch: Any, conf: Any, task: Any) -> Any:
-        raise NotImplementedError
+        """Enqueue the device work of one batch and return its state; the
+        default (no launch protocol) returns None."""
+        return None
 
     def map_batch_drain(self, fetched: Any, conf: Any, task: Any
                         ) -> Iterable[tuple]:
         raise NotImplementedError
 
+    @classmethod
+    def supports_launch(cls) -> bool:
+        return cls.map_batch_launch is not KernelMapper.map_batch_launch
+
     def map_batch(self, batch: Any, conf: Any, task: Any) -> Iterable[tuple]:
         """Launch, one device-to-host copy, drain."""
         state = self.map_batch_launch(batch, conf, task)
+        if state is None:
+            raise NotImplementedError(
+                f"kernel {self.name!r} has no launch and does not override "
+                "map_batch")
         return self.map_batch_drain(fetch_to_host([state])[0], conf, task)
-
-    def map_batch_cpu(self, batch: Any, conf: Any, task: Any
-                      ) -> Iterable[tuple]:
-        raise NotImplementedError
 
 
 _REGISTRY: dict[str, KernelMapper] = {}
@@ -110,3 +126,7 @@ def get_kernel(name: str) -> KernelMapper:
     except KeyError:
         raise KeyError(f"no kernel mapper {name!r}; registered: "
                        f"{sorted(_REGISTRY)}") from None
+
+
+def kernels() -> list[str]:
+    return sorted(_REGISTRY)
