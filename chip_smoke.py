@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port (tpumr_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--points N] [--profile]
+    python3 chip_smoke.py [--points N] [--tera-rows N] [--profile]
 
 Builds the port's CUDA kernels from tpumr_torch/csrc (one nvcc call) and
 holds each against its plain torch version on the card:
@@ -39,8 +39,19 @@ one fetch per map, the same count bit for bit on the second run), the same
 job on the CPU batch runner, and python -m tpumr_torch.cli examples pi in a
 process of its own; then bench.py's 200 MB wordcount text through the
 wordcount kernel (RawTextInputFormat) and the grep kernel
-(TextInputFormat), each against an oracle over the whole file. It prints
-the last line
+(TextInputFormat), each against an oracle over the whole file. TeraSort
+(BASELINE config 5, 10 GB): teragen of 100,000,000 records (16 maps), the
+device-shuffled terasort (4 ranges) cold then warm, each printing its
+stage seconds, peak host and card memory and counters (TPU_SHUFFLE_RECORDS
+must be 10^8, DEVICE_SORT_ON_ACCEL 1); the card's sort of all 10^8 keys
+held to a stable order (a permutation, keys non-decreasing, equal keys in
+input order) and, on the first 10^7, to np.lexsort; teravalidate on the
+output, and the record count and an order-independent checksum of the
+output equal to the input's; then bench.py's 2,000,000 records through the
+host shuffle and the device shuffle (the same records, part for part), and
+teragen, terasort --device-shuffle and teravalidate through python -m
+tpumr_torch.cli at 1,000,000 records, each in a process of its own. It
+prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -1180,6 +1191,328 @@ def text_phase() -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+#: BASELINE.json config 5, "TeraSort 10GB": 10^8 records of 100 bytes,
+#: generated by 16 maps and sorted into 4 ranges (bench.py:749-752)
+TERA_ROWS = 100_000_000
+TERA_MAPS = 16
+TERA_REDUCES = 4
+#: bench.py:727's terasort_host_job_s / terasort_device_job_s size, its
+#: teragen's 4 maps; and the CLI's size
+TERA_BENCH_ROWS = 2_000_000
+TERA_BENCH_MAPS = 4
+TERA_CLI_ROWS = 1_000_000
+#: the keys whose card permutation must equal np.lexsort's exactly
+TERA_LEXSORT_ROWS = 10_000_000
+#: scratch the phase needs at once: the input, the dense map outputs and
+#: one sorted output (about 10.6, 10.0 and 10.6 GB at 10^8 rows)
+TERA_DISK_BYTES_PER_ROW = 340
+#: rows a checksum pass moves to the card at a time
+CHECKSUM_ROWS = 10_000_000
+
+
+class RssPeak:
+    """The process's resident set at the start of a ``with`` block and its
+    peak over it, sampled from /proc/self/statm every 20 ms (getrusage's
+    ru_maxrss is the whole process's lifetime peak, which earlier phases
+    may have set; clear_refs, which would reset it, is refused there)."""
+
+    def __enter__(self) -> "RssPeak":
+        import threading
+        self.peak = 0
+        self._stop = threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._sample()
+        self.start = self.peak
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        with open("/proc/self/statm") as f:
+            self.peak = max(self.peak, int(f.read().split()[1]) * self._page)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self._sample()
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+
+def ru_maxrss_gb() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def seq_files(path: str) -> list:
+    return sorted(os.path.join(path, n) for n in os.listdir(path)
+                  if n.startswith("part-"))
+
+
+def read_seq_batch(path: str):
+    """A whole SequenceFile as (keys [n, 10], values [n, 90]) uint8."""
+    from tpumr_torch.io import sequencefile
+    with open(path, "rb") as f:
+        b = sequencefile.Reader(f).read_batch_range(0, os.path.getsize(path))
+    n = b.num_records
+    return b.key_data.reshape(n, -1), b.value_data.reshape(n, -1)
+
+
+def rows_checksum(path: str, keep_keys: bool = False) -> dict:
+    """The record count and an order-independent checksum of every
+    100-byte row of a SequenceFile directory, computed on the card: each
+    row's 25 little-endian int32 words weighted by two fixed int64 vectors
+    (w1, w2) give h1, h2; the sums of h1 and of h1 * h2 wrap in int64.
+    With ``keep_keys`` also the keys [n, 10] in file order."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(20260817)
+    w = torch.randint(1, 2 ** 31 - 1, (2, 25), generator=gen,
+                      dtype=torch.int64).to(dev)
+    s1 = torch.zeros((), dtype=torch.int64, device=dev)
+    s2 = torch.zeros((), dtype=torch.int64, device=dev)
+    count, keys = 0, []
+    for part in seq_files(path):
+        k, v = read_seq_batch(part)
+        if keep_keys:
+            keys.append(np.ascontiguousarray(k))
+        for lo in range(0, k.shape[0], CHECKSUM_ROWS):
+            rows = torch.cat([torch.from_numpy(k[lo:lo + CHECKSUM_ROWS]),
+                              torch.from_numpy(v[lo:lo + CHECKSUM_ROWS])],
+                             1).to(dev)
+            words = rows.view(torch.int32).to(torch.int64)
+            h1 = (words * w[0]).sum(1)
+            h2 = (words * w[1]).sum(1)
+            s1 += h1.sum()
+            s2 += (h1 * h2).sum()
+        count += k.shape[0]
+        del k, v
+    out = {"records": count, "sum_h1": int(s1), "sum_h1h2": int(s2)}
+    if keep_keys:
+        out["keys"] = np.concatenate(keys) if keys else \
+            np.zeros((0, 10), np.uint8)
+    return out
+
+
+def check_stable_sort(kcols: np.ndarray, n_lexsort: int) -> dict:
+    """The card's permutation of ``kcols`` (device_sort.device_partition_
+    sort, the gang reduce's sort): a permutation, keys non-decreasing
+    along it, indices increasing within runs of equal keys; on the first
+    ``n_lexsort`` keys equal to np.lexsort's."""
+    from tpumr_torch.parallel.device_sort import device_partition_sort
+    dev = torch.device("cuda")
+    n = kcols.shape[0]
+    stages = {}
+    order, cols = device_partition_sort(kcols, dev, stages)
+    perm = torch.from_numpy(order).to(dev)
+    check(perm.shape[0] == n and int(perm.min()) == 0
+          and int(perm.max()) == n - 1, "device sort: indices out of range")
+    seen = torch.zeros(n, dtype=torch.bool, device=dev)
+    seen[perm] = True
+    check(bool(seen.all()), "device sort: not a permutation")
+    del seen
+    s = cols[perm]
+    del cols
+    gt = torch.zeros(n - 1, dtype=torch.bool, device=dev)
+    eq = torch.ones(n - 1, dtype=torch.bool, device=dev)
+    for c in range(s.shape[1]):
+        a, b = s[:-1, c], s[1:, c]
+        gt |= eq & (a > b)
+        eq &= a == b
+    check(not bool(gt.any()), "device sort: keys decrease along the "
+          "permutation")
+    check(not bool((eq & (perm[1:] < perm[:-1])).any()),
+          "device sort: equal keys out of input order")
+    equal_pairs = int(eq.sum())
+    del s, gt, eq, perm
+    t = time.monotonic()
+    small = kcols[:n_lexsort]
+    want = np.lexsort(tuple(small[:, c] for c in
+                            range(small.shape[1] - 1, -1, -1)))
+    lexsort_s = time.monotonic() - t
+    got, _ = device_partition_sort(small, dev)
+    check(np.array_equal(got, want), f"device sort: the first {n_lexsort} "
+          "keys' permutation differs from np.lexsort's")
+    row = {"keys": n, "equal_adjacent_keys": equal_pairs,
+           "lexsort_keys": n_lexsort, "np_lexsort_s": lexsort_s,
+           "argsort_device_ms": stages.get("argsort_device_ms")}
+    log("terasort_sort_check " + json.dumps(row))
+    return row
+
+
+def tera_run(label: str, gen: str, out: str, rows: int,
+             device_shuffle: bool = True) -> dict:
+    """One terasort job through the port (make_terasort_conf, the local
+    runner) with TERA_REDUCES ranges: its stage seconds, peak host and
+    device memory and counters, printed as one JSON line."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.examples.terasort import make_terasort_conf
+    from tpumr_torch.mapred.local_runner import run_job
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t = time.monotonic()
+        conf = make_terasort_conf(f"file://{gen}", f"file://{out}",
+                                  TERA_REDUCES, device_shuffle)
+        conf_s = time.monotonic() - t
+        t = time.monotonic()   # bench.py times run_job alone
+        result = run_job(conf)
+        job_s = time.monotonic() - t
+    row = {"terasort_run": label, "records": rows,
+           "device_shuffle": device_shuffle, "conf_s": conf_s,
+           "job_s": job_s, "maps": result.num_maps, "map_s": result.map_seconds,
+           "reduce_s": result.reduce_seconds} | result.reduce_stages | {
+        "rss_start_gb": rss.start / 1e9, "peak_rss_gb": rss.peak / 1e9,
+        "ru_maxrss_gb": ru_maxrss_gb(),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for name in ("TPU_SHUFFLE_RECORDS", "DEVICE_SORT_ON_ACCEL",
+                 "SHUFFLE_HOST_FALLBACKS"):
+        row[name] = result.counters.value(BackendCounter.GROUP, name)
+    log(json.dumps(row))
+    check(result.successful, f"terasort {label} failed")
+    if device_shuffle:
+        check(row["TPU_SHUFFLE_RECORDS"] == rows,
+              f"terasort {label}: TPU_SHUFFLE_RECORDS "
+              f"{row['TPU_SHUFFLE_RECORDS']} != {rows}")
+        check(row["DEVICE_SORT_ON_ACCEL"] == 1,
+              f"terasort {label}: the sort did not run on the card")
+    check(len(seq_files(out)) == TERA_REDUCES,
+          f"terasort {label}: {len(seq_files(out))} part files")
+    return row
+
+
+def teragen(out: str, rows: int, maps: int) -> float:
+    from tpumr_torch.examples import terasort
+    t = time.monotonic()
+    check(terasort.teragen([str(rows), f"file://{out}", "-m", str(maps)])
+          == 0, "teragen failed")
+    secs = time.monotonic() - t
+    log(f"terasort_teragen {json.dumps({'records': rows, 'maps': maps, 'seconds': secs})}")
+    return secs
+
+
+def teravalidate(out: str, report: str) -> None:
+    import contextlib
+    import io
+
+    from tpumr_torch.examples import terasort
+    buf = io.StringIO()
+    t = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = terasort.teravalidate([f"file://{out}", f"file://{report}"])
+    printed = buf.getvalue()
+    log(f"terasort_validate {json.dumps({'rc': rc, 'seconds': time.monotonic() - t, 'printed': printed.strip()})}")
+    check(rc == 0 and "Output is globally sorted." in printed
+          and "FAILED" not in printed, f"teravalidate: {printed!r}")
+
+
+def same_parts(a: str, b: str) -> int:
+    """Two output dirs hold the same record sequences, part for part."""
+    pa, pb = seq_files(a), seq_files(b)
+    check([os.path.basename(p) for p in pa] ==
+          [os.path.basename(p) for p in pb], f"part files differ: {pa} {pb}")
+    total = 0
+    for x, y in zip(pa, pb):
+        (kx, vx), (ky, vy) = read_seq_batch(x), read_seq_batch(y)
+        check(np.array_equal(kx, ky) and np.array_equal(vx, vy),
+              f"{os.path.basename(x)}: host and device shuffles differ")
+        total += kx.shape[0]
+    return total
+
+
+def tera_cli(work: str) -> dict:
+    """teragen, terasort --device-shuffle and teravalidate through
+    python -m tpumr_torch.cli, each in a process of its own."""
+    base = f"file://{work}/cli"
+    cmds = [["teragen", str(TERA_CLI_ROWS), f"{base}-gen", "-m", "4"],
+            ["terasort", f"{base}-gen", f"{base}-out", "-r",
+             str(TERA_REDUCES), "--device-shuffle"],
+            ["teravalidate", f"{base}-out", f"{base}-report"]]
+    secs = []
+    for cmd in cmds:
+        t = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpumr_torch.cli", "examples"] + cmd,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        secs.append(time.monotonic() - t)
+        check(proc.returncode == 0, f"examples {cmd[0]} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check("Output is globally sorted." in proc.stdout,
+          f"examples teravalidate printed {proc.stdout[-500:]!r}")
+    sums = rows_checksum(f"{work}/cli-out")
+    check(sums == rows_checksum(f"{work}/cli-gen") and
+          sums["records"] == TERA_CLI_ROWS, "examples terasort lost or "
+          "changed records")
+    row = {"records": TERA_CLI_ROWS, "teragen_s": secs[0],
+           "terasort_s": secs[1], "teravalidate_s": secs[2]}
+    log("terasort_cli " + json.dumps(row))
+    return row
+
+
+def terasort_phase(rows: int) -> dict:
+    """BASELINE config 5 through the port on the card: teragen of ``rows``
+    records (16 maps), the device-shuffled terasort cold then warm (4
+    ranges), the card's sort held to its stable order and to np.lexsort,
+    teravalidate and the checksums of input and output; then bench.py's
+    host shuffle beside the device shuffle at 2,000,000 records, and the
+    three programs through the CLI at 1,000,000."""
+    from tpumr_torch.parallel.device_sort import argsort_keys, key_columns
+    t_phase = time.monotonic()
+    work = tempfile.mkdtemp(prefix="tpumr_torch-terasort-")
+    free = shutil.disk_usage(work).free
+    need = TERA_DISK_BYTES_PER_ROW * rows
+    check(free >= need, f"terasort: {free / 1e9:.1f} GB free under {work}, "
+          f"the phase needs {need / 1e9:.1f} GB")
+    out = {}
+    try:
+        gen = f"{work}/gen"
+        out["teragen_s"] = teragen(gen, rows, TERA_MAPS)
+        launches = argsort_keys.launches
+        out["cold"] = tera_run("cold", gen, f"{work}/out-cold", rows)
+        shutil.rmtree(f"{work}/out-cold")
+        out["warm"] = tera_run("warm", gen, f"{work}/out", rows)
+        out["argsort_launches"] = argsort_keys.launches - launches
+        check(out["argsort_launches"] == 2, "terasort: "
+              f"{out['argsort_launches']} device argsorts in two jobs")
+        t = time.monotonic()
+        sums_in = rows_checksum(gen, keep_keys=True)
+        kcols = key_columns(sums_in.pop("keys"), 10)
+        out["read_input_s"] = time.monotonic() - t
+        out["sort_check"] = check_stable_sort(
+            kcols, min(rows, TERA_LEXSORT_ROWS))
+        del kcols
+        teravalidate(f"{work}/out", f"{work}/report")
+        sums_out = rows_checksum(f"{work}/out")
+        log("terasort_checksum " + json.dumps(
+            {"input": sums_in, "output": sums_out}))
+        check(sums_in == sums_out and sums_out["records"] == rows,
+              "terasort: the output's records are not the input's")
+        shutil.rmtree(f"{work}/out")
+        shutil.rmtree(gen)
+
+        bench = f"{work}/bench-gen"
+        teragen(bench, TERA_BENCH_ROWS, TERA_BENCH_MAPS)
+        host = tera_run("bench_host", bench, f"{work}/bench-host",
+                        TERA_BENCH_ROWS, device_shuffle=False)
+        dev = tera_run("bench_device", bench, f"{work}/bench-device",
+                       TERA_BENCH_ROWS)
+        check(same_parts(f"{work}/bench-host", f"{work}/bench-device")
+              == TERA_BENCH_ROWS, "terasort: the host shuffle's records "
+              "are not the device shuffle's")
+        out["bench"] = {"terasort_host_job_s": host["job_s"],
+                        "terasort_device_job_s": dev["job_s"],
+                        "terasort_records": TERA_BENCH_ROWS}
+        log("terasort_bench " + json.dumps(out["bench"]))
+        out["cli"] = tera_cli(work)
+        log("terasort_phase " + json.dumps(
+            {"seconds": time.monotonic() - t_phase,
+             "read_input_s": out["read_input_s"]}))
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_warm_job(work: str) -> None:
     """One more warm job under torch.profiler: device time by kernel
     against the job's wall time, written under chiprun_out/."""
@@ -1267,6 +1600,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--points", type=int, default=100_000_000,
                     help="K-Means points in the main-path job")
+    ap.add_argument("--tera-rows", type=int, default=TERA_ROWS,
+                    help="records of the terasort phase's 10 GB job")
     ap.add_argument("--profile", action="store_true",
                     help="also profile two more warm jobs, device and host "
                          "(chiprun_out/)")
@@ -1303,6 +1638,7 @@ def main() -> None:
     job3 = third_job(km)
     matmul_phase()
     text_phase()
+    terasort_phase(args.tera_rows)
     f, a = fused["main"], shapes["job2"]
     kernels = [{
         "name": "kmeans_assign_partials", "route": "cuda",

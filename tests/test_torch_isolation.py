@@ -37,6 +37,10 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tpumr_torch.mapred.local_runner" in report["imported"]
     assert "tpumr_torch.ops.kmeans" in report["imported"]
+    for name in ("io.sequencefile", "io.compress", "mapred.total_order",
+                 "mapred.device_shuffle", "parallel.device_sort",
+                 "examples.terasort"):
+        assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 
 

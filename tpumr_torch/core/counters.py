@@ -30,6 +30,11 @@ class BackendCounter:
     TPU_MAP_MILLIS = "TPU_MAP_MILLIS"
     TPU_DEVICE_BYTES_STAGED = "TPU_DEVICE_BYTES_STAGED"
     CPU_BATCH_MAP_TASKS = "CPU_BATCH_MAP_TASKS"
+    TPU_SHUFFLE_RECORDS = "TPU_SHUFFLE_RECORDS"
+    TPU_SHUFFLE_BYTES = "TPU_SHUFFLE_BYTES"
+    #: device-shuffled reduces whose sort ran on the card (not the CPU)
+    DEVICE_SORT_ON_ACCEL = "DEVICE_SORT_ON_ACCEL"
+    SHUFFLE_HOST_FALLBACKS = "SHUFFLE_HOST_FALLBACKS"
     GROUP = "tpumr.BackendCounter"
 
 

@@ -29,7 +29,7 @@ def programs() -> dict[str, str]:
 
 def _load_all() -> None:
     # imported for their registrations
-    from tpumr_torch.examples import basic  # noqa: F401
+    from tpumr_torch.examples import basic, terasort  # noqa: F401
 
 
 def main(argv: list[str]) -> int:

@@ -1,15 +1,15 @@
 """Binary record serialization for map outputs and spill files.
 
 Counterpart of ``tpumr/io/writable.py`` (``serialize`` at :86,
-``deserialize`` at :215), trimmed to the value types K-Means records carry.
-The bytes are the JAX package's, tag for tag, so the two packages' map
-outputs, partitions and byte counters agree.
+``deserialize`` at :215, the vint stream helpers at :25-56). The bytes are
+the JAX package's, tag for tag, so the two packages' map outputs,
+partitions, SequenceFiles and byte counters agree.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any
+from typing import Any, BinaryIO
 
 import numpy as np
 
@@ -23,6 +23,9 @@ _T_BOOL_F = 6
 _T_LIST = 7
 _T_NDARRAY = 8  # dtype-str, shape, raw bytes
 _T_DICT = 9
+
+#: the tag byte of a ``bytes`` value: the fixed-width record frames
+_TAG_BYTES = bytes((_T_BYTES,))
 
 
 def vint_into(buf: bytearray, value: int) -> None:
@@ -47,6 +50,28 @@ def vint_at(d: bytes, pos: int) -> "tuple[int, int]":
         result |= (b & 0x7F) << shift
         if not b & 0x80:
             return result, pos
+        shift += 7
+
+
+def vint_bytes(value: int) -> bytes:
+    buf = bytearray()
+    vint_into(buf, value)
+    return bytes(buf)
+
+
+def write_vint(out: BinaryIO, value: int) -> None:
+    out.write(vint_bytes(value))
+
+
+def read_vint(inp: BinaryIO) -> int:
+    shift = result = 0
+    while True:
+        raw = inp.read(1)
+        if not raw:
+            raise EOFError("EOF inside vint")
+        result |= (raw[0] & 0x7F) << shift
+        if not raw[0] & 0x80:
+            return result
         shift += 7
 
 

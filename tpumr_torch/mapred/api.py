@@ -25,11 +25,25 @@ class Reporter:
 
 
 class OutputCollector:
-    def __init__(self, fn: Callable[[Any, Any], None]) -> None:
+    """Hands records to ``fn``; ``collect_fixed_rows`` hands ``[n, klen +
+    vlen] uint8`` rows over at once where the sink takes them whole
+    (``fixed_rows_fn``), else one record at a time."""
+
+    def __init__(self, fn: Callable[[Any, Any], None],
+                 fixed_rows_fn: "Callable[[Any, int], None] | None" = None
+                 ) -> None:
         self._fn = fn
+        self._fixed_rows_fn = fixed_rows_fn
 
     def collect(self, key: Any, value: Any) -> None:
         self._fn(key, value)
+
+    def collect_fixed_rows(self, rows: Any, klen: int) -> None:
+        if self._fixed_rows_fn is not None:
+            self._fixed_rows_fn(rows, klen)
+            return
+        for i in range(rows.shape[0]):
+            self._fn(rows[i, :klen].tobytes(), rows[i, klen:].tobytes())
 
 
 class JobConfigurable:
@@ -47,6 +61,10 @@ class Mapper(JobConfigurable):
 
 
 class IdentityMapper(Mapper):
+    #: the mapper passes records through untouched: a device-shuffled job
+    #: may move its split in bulk (``map_task._identity_dense_fast_path``)
+    identity_map = True
+
     def map(self, key, value, output, reporter):
         output.collect(key, value)
 
@@ -91,7 +109,12 @@ class MapRunner(MapRunnable):
             self.mapper.close()
 
 
-class HashPartitioner(JobConfigurable):
+class Partitioner(JobConfigurable):
+    def get_partition(self, key: Any, value: Any, num_partitions: int) -> int:
+        raise NotImplementedError
+
+
+class HashPartitioner(Partitioner):
     """crc32 of the serialized key, modulo the partition count: the JAX
     package's rule, so both send a key to the same reduce."""
 
@@ -104,3 +127,11 @@ class DeserializingComparator:
 
     def sort_key(self, kbytes: bytes) -> Any:
         return deserialize(kbytes)
+
+
+class RawComparator:
+    """Byte order of the serialized key: the key's own order where its
+    serialized form sorts like it (fixed-width ``bytes`` keys)."""
+
+    def sort_key(self, kbytes: bytes) -> Any:
+        return kbytes

@@ -2,8 +2,9 @@
 
 Counterpart of ``tpumr/mapred/input_formats.py``: ``FileInputFormat``,
 ``LineRecordReader``, ``TextInputFormat``, ``RawTextInputFormat`` and
-``NLineInputFormat`` (``:42-318``), and ``load_dense``, ``read_npy_header``
-and ``DenseInputFormat`` (``:426-501``). Splits and records are the JAX
+``NLineInputFormat`` (``:42-318``), ``SequenceFileInputFormat``
+(``:319-350``), and ``load_dense``, ``read_npy_header`` and
+``DenseInputFormat`` (``:426-501``). Splits and records are the JAX
 package's, byte for byte: a text split is planned as
 ``max(min, min(goal, block, max))`` bytes with the 1.1 split slop, and owns
 every line that starts at a position up to its end.
@@ -17,6 +18,7 @@ from typing import Any, Iterator
 import numpy as np
 
 from tpumr_torch.fs.filesystem import FileStatus, FileSystem
+from tpumr_torch.io import sequencefile
 from tpumr_torch.io.recordbatch import DenseBatch, RecordBatch
 from tpumr_torch.mapred.split import DenseSplit, FileSplit, InputSplit
 
@@ -237,6 +239,31 @@ class NLineInputFormat(FileInputFormat):
                 pos += len(line)
         finally:
             f.close()
+
+
+class SequenceFileInputFormat(FileInputFormat):
+    """Typed key/value records of SequenceFiles, each split read from the
+    sync marker at or after its start (``sequencefile.Reader``)."""
+
+    def get_record_reader(self, split: FileSplit, conf: Any,
+                          reporter: Any = None) -> Iterator[tuple[Any, Any]]:
+        f = FileSystem.get(split.path, conf).open(split.path)
+        reader = sequencefile.Reader(f)
+
+        def gen() -> Iterator[tuple[Any, Any]]:
+            try:
+                yield from reader.iter_range(split.start,
+                                             split.start + split.length)
+            finally:
+                f.close()
+
+        return gen()
+
+    def read_batch(self, split: FileSplit, conf: Any) -> RecordBatch:
+        """The whole split as one batch (``Reader.read_batch_range``)."""
+        with FileSystem.get(split.path, conf).open(split.path) as f:
+            return sequencefile.Reader(f).read_batch_range(
+                split.start, split.start + split.length)
 
 
 def load_dense(fs: FileSystem, path: str) -> np.ndarray:

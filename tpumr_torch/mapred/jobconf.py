@@ -25,6 +25,9 @@ class JobConf(Configuration):
     def __init__(self, other: "Configuration | None" = None) -> None:
         super().__init__(other=other, defaults=DEFAULTS)
 
+    def set_job_name(self, name: str) -> None:
+        self.set("mapred.job.name", name)
+
     # ------------------------------------------------------------ io paths
 
     def set_input_paths(self, *paths: str) -> None:
@@ -71,6 +74,9 @@ class JobConf(Configuration):
     def get_reducer_class(self) -> "type | None":
         return self.get_class("mapred.reducer.class")
 
+    def set_partitioner_class(self, cls: type) -> None:
+        self.set_class("mapred.partitioner.class", cls)
+
     def get_partitioner_class(self) -> type:
         from tpumr_torch.mapred.api import HashPartitioner
         return self.get_class("mapred.partitioner.class", HashPartitioner)
@@ -89,6 +95,9 @@ class JobConf(Configuration):
         from tpumr_torch.mapred.output_formats import TextOutputFormat
         return self.get_class("mapred.output.format.class", TextOutputFormat)
 
+    def set_output_key_comparator_class(self, cls: type) -> None:
+        self.set_class("mapred.output.key.comparator.class", cls)
+
     def get_output_key_comparator(self) -> Any:
         from tpumr_torch.mapred.api import DeserializingComparator
         return new_instance(self.get_class(
@@ -103,6 +112,14 @@ class JobConf(Configuration):
 
     def get_map_kernel(self) -> "str | None":
         return self.get("tpumr.map.kernel")
+
+    def set_device_shuffle(self, key_bytes: int, value_bytes: int) -> None:
+        """Sort this job's map output on the device
+        (``mapred/device_shuffle.py``): its keys and values must be
+        ``bytes`` of exactly these widths."""
+        self.set("tpumr.shuffle.device", True)
+        self.set("tpumr.shuffle.device.key.bytes", key_bytes)
+        self.set("tpumr.shuffle.device.value.bytes", value_bytes)
 
     # ------------------------------------------------------------ sort/spill
 

@@ -10,7 +10,12 @@ through the normal collect/spill path. Where the window cannot take the job
 (a host kernel, an input format without ``read_batch``), the rest of the
 job's maps run one by one, each through the per-task device path. A
 map-only job (``mapred.reduce.tasks=0``) commits each map attempt's output
-and has no reduce phase.
+and has no reduce phase. A device-shuffled job
+(``JobConf.set_device_shuffle``) is planned at submission with one gang
+reduce task (``device_shuffle.prepare_device_shuffle_job``, on the runner's
+copy of the conf), which sorts every map's dense output on the job's
+device and writes the job's ranges (``:68-70``, ``:138-151``); any other
+job runs one reduce task per partition over the maps' IFiles.
 
 The entry points run on ``cuda`` unless the caller asks for the CPU with
 ``device="cpu"`` or the conf key ``tpumr_torch.device=cpu``
@@ -37,6 +42,10 @@ import torch
 from tpumr_torch.core.counters import Counters, JobCounter
 from tpumr_torch.device import DEVICE_KEY, select_device
 from tpumr_torch.mapred.api import Reporter
+from tpumr_torch.mapred.device_shuffle import (is_device_shuffle,
+                                               local_dense_fetch,
+                                               prepare_device_shuffle_job,
+                                               run_device_reduce)
 from tpumr_torch.mapred.gpu_runner import prelaunch_device_maps
 from tpumr_torch.mapred.ids import JobID, TaskAttemptID, TaskID
 from tpumr_torch.mapred.jobconf import JobConf
@@ -55,6 +64,11 @@ class JobResult:
     num_maps: int = 0
     num_reduces: int = 0
     wall_time: float = 0.0
+    #: seconds of the map phase and of the reduce phase
+    map_seconds: float = 0.0
+    reduce_seconds: float = 0.0
+    #: the gang reduce's stage seconds (``run_device_reduce``), if any
+    reduce_stages: dict = field(default_factory=dict)
 
 
 class LocalJobRunner:
@@ -69,6 +83,7 @@ class LocalJobRunner:
         if self.device is not None:
             conf.set(DEVICE_KEY, str(self.device))
         device = select_device(conf)   # no CUDA, no CPU asked for: raise
+        prepare_device_shuffle_job(conf)
         with LocalJobRunner._seq_lock:
             LocalJobRunner._seq += 1
             job_id = JobID("local", LocalJobRunner._seq)
@@ -113,6 +128,7 @@ class LocalJobRunner:
 
         window = (conf.get_int("tpumr.tpu.pipeline.window", 32)
                   if run_on_tpu else 0)
+        t0 = time.monotonic()
         lo = 0
         while lo < len(tasks):
             hi = len(tasks)
@@ -128,18 +144,29 @@ class LocalJobRunner:
                 one_map(task)
             lo = hi
 
+        map_seconds = time.monotonic() - t0
+
+        t0 = time.monotonic()
+        stages: dict = {}
         for r in range(num_reduces):
             attempt = TaskAttemptID(TaskID(job_id, False, r), 0)
+            task = Task(attempt, partition=r, num_reduces=num_reduces,
+                        num_maps=len(splits))
             reporter = Reporter()
-            run_reduce_task(conf, Task(attempt, partition=r,
-                                       num_reduces=num_reduces),
-                            map_outputs, reporter)
+            if is_device_shuffle(conf):   # the one gang task
+                stages = run_device_reduce(
+                    conf, task, local_dense_fetch(map_outputs), reporter)
+            else:
+                run_reduce_task(conf, task, map_outputs, reporter)
             committer.commit_task(str(attempt))
             counters.merge(reporter.counters)
             counters.incr(JobCounter.GROUP, JobCounter.LAUNCHED_REDUCE_TASKS)
 
         committer.commit_job()
-        return JobResult(job_id, True, counters, len(splits), num_reduces)
+        return JobResult(job_id, True, counters, len(splits), num_reduces,
+                         map_seconds=map_seconds,
+                         reduce_seconds=time.monotonic() - t0,
+                         reduce_stages=stages)
 
 
 def maps_on_device(conf: JobConf, device: torch.device) -> bool:

@@ -14,6 +14,15 @@ written once, at its end, through the job's combiner where it has one
 several times and merging the spills is not ported: a map output that
 reaches the point where the JAX package would spill early (``io.sort.mb`` ×
 ``io.sort.spill.percent``) raises instead of writing a short output.
+
+A device-shuffled job's maps write one dense file each
+(``device_shuffle.DenseMapOutputBuffer``, the seam of ``:300-318``); an
+identity mapper's split moves there whole as one batch
+(:func:`_identity_dense_fast_path`). A mapper class that declares
+``map_record_batch`` gets its split as one batch on a CPU slot
+(:func:`_host_batch_fast_path`). Both take the flag from the class's own
+``__dict__``: a subclass that overrides ``map`` without declaring it again
+runs record by record.
 """
 
 from __future__ import annotations
@@ -24,10 +33,13 @@ from typing import Any, Iterator
 
 from tpumr_torch.core.counters import BackendCounter, TaskCounter
 from tpumr_torch.io import ifile
+from tpumr_torch.io.recordbatch import RecordBatch
 from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred.api import OutputCollector, Reporter
+from tpumr_torch.mapred.device_shuffle import (DenseMapOutputBuffer,
+                                               is_device_shuffle)
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
-from tpumr_torch.mapred.split import InputSplit
+from tpumr_torch.mapred.split import DenseSplit, InputSplit
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
@@ -135,18 +147,24 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
         runner_cls = _cpu_runner_class(conf)
         backend_tasks, backend_ms = (BackendCounter.CPU_MAP_TASKS,
                                      BackendCounter.CPU_MAP_MILLIS)
-    runner = new_instance(runner_cls, conf)
     split = InputSplit.from_dict(task.split) if task.split else None
-    reader = _counted_reader(new_instance(conf.get_input_format(), conf),
-                             split, conf, reporter)
+    in_fmt = new_instance(conf.get_input_format(), conf)
+
+    def run_mapper(collector: OutputCollector) -> None:
+        if task.run_on_tpu or not _host_batch_fast_path(
+                conf, in_fmt, split, collector, reporter):
+            runner = new_instance(runner_cls, conf)
+            runner.run(_counted_reader(in_fmt, split, conf, reporter),
+                       collector, reporter, task_ctx=task)
+
     if task.num_reduces == 0:
         wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
         writer = new_instance(conf.get_output_format(), conf) \
             .get_record_writer(conf, wd, task.partition)
         ok = False
         try:
-            runner.run(reader, OutputCollector(writer.write), reporter,
-                       task_ctx=task)
+            run_mapper(OutputCollector(
+                writer.write, getattr(writer, "write_fixed_rows", None)))
             ok = True
         finally:
             # a failed attempt aborts a writer that can (nothing written or
@@ -154,15 +172,91 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
             abort = None if ok else getattr(writer, "abort", None)
             (abort or writer.close)()
         out: tuple[str, dict] = ("", {})
+    elif is_device_shuffle(conf):
+        buffer = DenseMapOutputBuffer(conf, local_dir, reporter)
+        if not _identity_dense_fast_path(conf, in_fmt, split, buffer,
+                                         reporter):
+            run_mapper(OutputCollector(buffer.collect))
+        out = buffer.flush()
     else:
         buffer = MapOutputBuffer(conf, task.num_reduces, local_dir, reporter)
-        runner.run(reader, OutputCollector(buffer.collect), reporter,
-                   task_ctx=task)
+        run_mapper(OutputCollector(buffer.collect))
         out = buffer.flush()
     reporter.incr_counter(BackendCounter.GROUP, backend_tasks)
     reporter.incr_counter(BackendCounter.GROUP, backend_ms,
                           int((time.monotonic() - t0) * 1000))
     return out
+
+
+def _declared_mapper_class(conf: Any, attr: str) -> "type | None":
+    """The job's mapper class where the class itself declares ``attr``
+    truthy; an inherited flag does not count."""
+    mapper_cls = conf.get_class("mapred.mapper.class")
+    if mapper_cls is not None and mapper_cls.__dict__.get(attr):
+        return mapper_cls
+    return None
+
+
+def _read_batch_for_fast_path(conf: Any, in_fmt: Any, split: Any
+                              ) -> "RecordBatch | None":
+    """The split as one :class:`RecordBatch`, or None where the input
+    format reads no batches or its batches have no byte keys."""
+    if split is None or getattr(in_fmt, "read_batch", None) is None:
+        return None
+    if isinstance(split, DenseSplit):
+        return None
+    batch = in_fmt.read_batch(split, conf)
+    return batch if isinstance(batch, RecordBatch) else None
+
+
+def _identity_dense_fast_path(conf: Any, in_fmt: Any, split: Any,
+                              buffer: DenseMapOutputBuffer,
+                              reporter: Reporter) -> bool:
+    """A device-shuffled identity map: the split read as one batch goes
+    into the dense buffer as two array appends. False (the caller maps
+    record by record, reading the split again) for a mapper that is not
+    the identity, an input without batches, or records whose widths are
+    not the job's."""
+    if _declared_mapper_class(conf, "identity_map") is None:
+        return False
+    batch = _read_batch_for_fast_path(conf, in_fmt, split)
+    if batch is None:
+        return False
+    n = batch.num_records
+    if n == 0:
+        return True
+    klens = batch.key_offsets[1:] - batch.key_offsets[:-1]
+    vlens = batch.value_offsets[1:] - batch.value_offsets[:-1]
+    if not ((klens == buffer.klen).all() and (vlens == buffer.vlen).all()):
+        return False
+    keys, _ = batch.padded_keys(buffer.klen)
+    values, _ = batch.padded_values(buffer.vlen)
+    buffer.collect_fixed_batch(keys, values)
+    reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                          TaskCounter.MAP_INPUT_RECORDS, n)
+    return True
+
+
+def _host_batch_fast_path(conf: Any, in_fmt: Any, split: Any,
+                          collector: OutputCollector,
+                          reporter: Reporter) -> bool:
+    """A mapper class that declares ``map_record_batch(batch, output,
+    reporter)`` gets the whole split as one batch (teravalidate's order
+    check). False where it does not, or the input has no batches."""
+    mapper_cls = _declared_mapper_class(conf, "map_record_batch")
+    if mapper_cls is None:
+        return False
+    batch = _read_batch_for_fast_path(conf, in_fmt, split)
+    if batch is None:
+        return False
+    mapper = new_instance(mapper_cls, conf)
+    try:
+        mapper.map_record_batch(batch, collector, reporter)
+    finally:
+        mapper.close()
+    reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                          TaskCounter.MAP_INPUT_RECORDS, batch.num_records)
+    return True
 
 
 def _cpu_runner_class(conf: Any) -> type:

@@ -1,8 +1,9 @@
-"""Text and dense ``.npy`` output, and the two-phase output commit.
+"""Text, SequenceFile and dense ``.npy`` output, and the two-phase output
+commit.
 
-Counterpart of ``TextOutputFormat``, ``DenseNpyOutputFormat`` and
-``FileOutputCommitter`` in ``tpumr/mapred/output_formats.py``. Tasks write
-under
+Counterpart of ``TextOutputFormat``, ``SequenceFileOutputFormat``,
+``DenseNpyOutputFormat`` and ``FileOutputCommitter`` in
+``tpumr/mapred/output_formats.py``. Tasks write under
 ``$out/_temporary/<attempt>/``; a committed attempt's files move into
 ``$out``; the job commit writes ``_SUCCESS`` and removes ``_temporary``.
 """
@@ -16,6 +17,7 @@ from typing import Any
 import numpy as np
 
 from tpumr_torch.fs.filesystem import FileSystem, Path
+from tpumr_torch.io import sequencefile
 from tpumr_torch.mapred import device_output
 
 TEMP_DIR = "_temporary"
@@ -66,6 +68,38 @@ class TextOutputFormat(FileOutputFormat):
         sep = conf.get("mapred.textoutputformat.separator", "\t")
         return _TextWriter(fs.create(Path(work_dir).child(part_name(partition))),
                            sep)
+
+
+class _SeqWriter:
+    def __init__(self, stream: Any, codec: str) -> None:
+        self._f = stream
+        self._w = sequencefile.Writer(stream, codec=codec)
+
+    def write(self, key: Any, value: Any) -> None:
+        self._w.append(key, value)
+
+    def write_fixed_rows(self, rows: np.ndarray, klen: int) -> None:
+        """Fixed-width ``bytes`` records in bulk
+        (``sequencefile.Writer.append_fixed_rows``)."""
+        self._w.append_fixed_rows(rows, klen)
+
+    def close(self) -> None:
+        self._w.close()
+        self._f.close()
+
+
+class SequenceFileOutputFormat(FileOutputFormat):
+    """One SequenceFile per task, block-compressed with
+    ``mapred.output.compression.codec`` when ``mapred.output.compress`` is
+    set."""
+
+    def get_record_writer(self, conf: Any, work_dir: str,
+                          partition: int) -> _SeqWriter:
+        fs = FileSystem.get(work_dir, conf)
+        codec = conf.get("mapred.output.compression.codec", "none") \
+            if conf.get_boolean("mapred.output.compress", False) else "none"
+        return _SeqWriter(
+            fs.create(Path(work_dir).child(part_name(partition))), codec)
 
 
 class _DenseNpyWriter:

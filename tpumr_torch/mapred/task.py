@@ -18,6 +18,7 @@ class Task:
     attempt_id: TaskAttemptID
     partition: int                 # map: split index; reduce: partition index
     num_reduces: int = 1
+    num_maps: int = 0              # reduce: the maps whose output it reads
     split: "dict | None" = None    # InputSplit.to_dict() for maps
     run_on_tpu: bool = False
     tpu_device_id: int = -1
