@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (tpumr_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--points N] [--tera-rows N] [--profile]
+    python3 chip_smoke.py [--points N] [--hybrid-points N] [--tera-rows N]
+                          [--profile]
 
 Builds the port's CUDA kernels from tpumr_torch/csrc (one nvcc call) and
 holds each against its plain torch version on the card:
@@ -29,7 +30,17 @@ the fused kernel once per split; rounds 0 and 9 are held against a float64
 Lloyd step. The same ten rounds again with the caches cleared before each
 round must give byte-identical centroids, and the examples kmeans program
 (python -m tpumr_torch.cli examples kmeans, in a process of its own) must
-give round 3's centroids exactly. Matmul: the map-only blocked product of
+give round 3's centroids exactly. Hybrid: bench.py's hybrid phase on the
+port's MiniMRCluster (a job master and one node runner with 3 CPU map slots
+and 1 GPU map slot, RPC over localhost, optional scheduling on): K-Means
+over 32,000,000 x 16 points from default_rng(4) in 8 maps, three times
+(kmeans_round1, kmeans_round2 over a warm split cache, kmeans_minimize
+under tpumr.scheduler.mode=minimize), each placing maps on both pools,
+launching kmeans_assign_partials once per GPU map and kmeans_assign never,
+and committing the centroids of a float64 Lloyd step; kmeans_round2's
+acceleration factor (mean CPU map seconds over mean GPU map seconds) must
+exceed 1; then a 4,096^2 f32 matmul in 4 maps to SequenceFiles against a
+float64 product. Matmul: the map-only blocked product of
 two 4,096 x 4,096 f32 matrices (4 maps) in f32 and in bf16 with f32 output,
 each against a float64 product, and a chain job D = C @ B that reads C from
 the card (0 bytes staged). Text: bench.py's pi job (8 maps of 50,000,000
@@ -70,6 +81,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -147,6 +159,12 @@ PI_SIGMAS = 6
 #: pattern run over it (100 distinct matches)
 WC_MB, WC_WORDS = 200, 4096
 GREP_PATTERN = "word00[0-9]{2}"
+#: bench.py's hybrid phase (bench.py:1168-1308): its seed, K-Means points
+#: (written in chunks of HYB_CHUNK rows) in splits of HYB_ROWS rows (8 maps),
+#: and the HYB_MM_N x HYB_MM_N matmul (4 maps); seconds a job may take
+HYB_SEED, HYB_N, HYB_ROWS, HYB_CHUNK = 4, 32_000_000, 4_000_000, 2_000_000
+HYB_MM_N = 4096
+HYB_JOB_TIMEOUT_S = 120
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W), FLOP/s
 PEAK_BF16_FLOP_PER_S = 989e12
 #: the fused kernel's sums against a float64 sum over its own ids: within
@@ -800,6 +818,241 @@ def rounds_phase(work: str, n: int, km) -> dict:
                "cli_seconds": t_cli, "cli_equal_round": CLI_ITERATIONS}
     log("rounds_summary " + json.dumps(summary))
     return summary
+
+
+def hybrid_data(work: str, n: int, mm_n: int) -> np.ndarray:
+    """bench.py's hybrid data (bench.py:1187-1201), the same draws in the
+    same order: default_rng(4) gives the k x d centroids, the n x d points
+    in chunks of HYB_CHUNK rows, then A and B, mm_n x mm_n each."""
+    rng = np.random.default_rng(HYB_SEED)
+    cents = rng.standard_normal(size=(K, D), dtype=np.float32)
+    np.save(os.path.join(work, "cents.npy"), cents)
+    header = np.lib.format.header_data_from_array_1_0(
+        np.empty((0, D), np.float32))
+    header["shape"] = (n, D)
+    with open(os.path.join(work, "points.npy"), "wb") as out:
+        np.lib.format.write_array_header_1_0(out, header)
+        for lo in range(0, n, HYB_CHUNK):
+            m = min(HYB_CHUNK, n - lo)
+            out.write(rng.standard_normal(size=(m, D),
+                                          dtype=np.float32).tobytes())
+    np.save(os.path.join(work, "a.npy"),
+            rng.standard_normal(size=(mm_n, mm_n), dtype=np.float32))
+    np.save(os.path.join(work, "b.npy"),
+            rng.standard_normal(size=(mm_n, mm_n), dtype=np.float32))
+    return cents
+
+
+def hybrid_run(conf, tag: str, km) -> dict:
+    """One job through the cluster's JobClient, as bench.py's
+    run_and_profile: the job's seconds, its per-backend mean map seconds
+    and acceleration factor from the master, its counters, the placement
+    of every map in assignment order (T: the GPU slot, c: a CPU slot) and
+    the all-GPU tail, the fused kernel's launches in the run, and how
+    many heartbeats the acceleration factor starved the CPU slots in.
+    Every map must succeed on its first attempt: a failed attempt on
+    either pool fails the phase."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.job_client import JobClient
+    from tpumr_torch.ops import matmul
+    km.clear_centroid_cache()            # as bench.py does per job
+    matmul.clear_b_cache()
+    cache = gpu_runner.split_cache(
+        torch.device("cuda", 0),
+        conf.get_int("tpumr.tpu.split.cache.mb", 2048) << 20)
+    hits0 = cache.hits
+    client = JobClient(conf)
+    try:
+        zero_launch_counts(km)
+        t = time.monotonic()
+        running = client.submit_job(conf)
+        st = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+        secs = time.monotonic() - t
+        launches = launch_counts(km)
+        counters = running.counters()
+        reports = running.task_reports("map")
+    finally:
+        client.close()
+    check(st["state"] == "SUCCEEDED", f"hybrid {tag}: {st['state']} "
+          f"{st.get('error', '')}")
+    seq = "".join("T" if r["run_on_tpu"] else "c" for r in sorted(
+        reports, key=lambda r: r["start_time"]))
+    tail = len(seq) - len(seq.rstrip("T"))
+    row = {"run": tag, "job_s": secs,
+           "acceleration_factor": st["acceleration_factor"],
+           "cpu_map_mean_s": st["cpu_map_mean_time"],
+           "gpu_map_mean_s": st["tpu_map_mean_time"],
+           "TPU_MAP_TASKS": counters.value(BackendCounter.GROUP,
+                                           BackendCounter.TPU_MAP_TASKS),
+           "CPU_MAP_TASKS": counters.value(BackendCounter.GROUP,
+                                           BackendCounter.CPU_MAP_TASKS),
+           "CPU_BATCH_MAP_TASKS": counters.value(
+               BackendCounter.GROUP, BackendCounter.CPU_BATCH_MAP_TASKS),
+           "placement": seq, "gpu_tail": tail,
+           "gpu_device_ids": sorted({r["tpu_device_id"] for r in reports
+                                     if r["run_on_tpu"]}),
+           "launches": launches,
+           "bytes_staged": counters.value(
+               BackendCounter.GROUP, BackendCounter.TPU_DEVICE_BYTES_STAGED),
+           "split_cache_hits": cache.hits - hits0,
+           "cpu_starved_heartbeats": st["cpu_starved_heartbeats"]}
+    log("hybrid " + json.dumps(row))
+    retried = [r["task_id"] for r in reports
+               if not r["successful_attempt"].endswith("_0")]
+    check(not retried, f"hybrid {tag}: maps {retried} succeeded only "
+          "after a failed attempt")
+    check(row["TPU_MAP_TASKS"] + row["CPU_MAP_TASKS"] == st["num_maps"]
+          == len(seq), f"hybrid {tag}: {row['TPU_MAP_TASKS']} GPU and "
+          f"{row['CPU_MAP_TASKS']} CPU maps of {st['num_maps']}")
+    check(row["TPU_MAP_TASKS"] == st["finished_tpu_maps"] and
+          row["CPU_MAP_TASKS"] == st["finished_cpu_maps"],
+          f"hybrid {tag}: counters and the master's placement disagree")
+    check(row["gpu_device_ids"] in ([], [0]),
+          f"hybrid {tag}: GPU maps on devices {row['gpu_device_ids']}")
+    return row
+
+
+def hybrid_phase(km, n: int) -> dict:
+    """bench.py's hybrid phase (bench.py:1168-1308) on the port's
+    MiniMRCluster: one node runner with 3 CPU map slots and 1 GPU map slot,
+    optional scheduling on. K-Means over n x 16 points (16 centroids,
+    splits of HYB_ROWS rows: 8 maps at the default n, one reduce) three
+    times on the same cluster: kmeans_round1, kmeans_round2 (warm split
+    cache) and kmeans_minimize (tpumr.scheduler.mode=minimize). Each must
+    place maps on both pools, launch kmeans_assign_partials once per GPU
+    map and kmeans_assign never, run every CPU map on the batch runner, and
+    commit the centroids of a float64 Lloyd step. kmeans_round2's
+    acceleration factor must exceed 1. Then hybrid-matmul: HYB_MM_N^2 f32 A
+    and B, 4 maps, map-only, SequenceFileOutputFormat, f32 products (TF32
+    off, cuBLAS on the GPU slot, numpy on the CPU slots), against a float64
+    product."""
+    from tpumr_torch.io import sequencefile
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.mini_cluster import MiniMRCluster
+    from tpumr_torch.mapred.output_formats import SequenceFileOutputFormat
+    from tpumr_torch.ops import devcache
+
+    t_phase = time.monotonic()
+    work = tempfile.mkdtemp(prefix="tpumr_torch-hybrid-")
+    try:
+        t = time.monotonic()
+        cents = hybrid_data(work, n, HYB_MM_N)
+        log(f"hybrid data: {n} x {D} points and two {HYB_MM_N}^2 "
+            f"matrices written in {time.monotonic() - t:.3f}s")
+        gpu_runner.clear_split_caches()
+        devcache.clear_device_cache()
+        n_maps = -(-n // HYB_ROWS)
+        base = JobConf()
+        base.set("mapred.jobtracker.map.optionalscheduling", True)
+        runs = []
+        with MiniMRCluster(num_trackers=1, cpu_slots=3, tpu_slots=1,
+                           conf=base) as c:
+            conf = c.create_job_conf()
+            conf.set_job_name("hybrid-kmeans")
+            conf.set_input_paths(f"file://{work}/points.npy")
+            conf.set_output_path(f"file://{work}/out-km")
+            conf.set_input_format(DenseInputFormat)
+            conf.set("tpumr.dense.split.rows", HYB_ROWS)
+            conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+            conf.set_map_kernel("kmeans-assign")
+            conf.set("mapred.reducer.class",
+                     "tpumr_torch.ops.kmeans.CentroidReducer")
+            conf.set_num_reduce_tasks(1)
+            for tag, out in (("kmeans_round1", "out-km"),
+                             ("kmeans_round2", "out-km-r2"),
+                             ("kmeans_minimize", "out-km-r3")):
+                if tag == "kmeans_minimize":
+                    conf.set("tpumr.scheduler.mode", "minimize")
+                conf.set_output_path(f"file://{work}/{out}")
+                row = hybrid_run(conf, tag, km)
+                row["out"] = out
+                runs.append(row)
+
+            conf = c.create_job_conf()
+            conf.set_job_name("hybrid-matmul")
+            conf.set_input_paths(f"file://{work}/a.npy")
+            conf.set_output_path(f"file://{work}/out-mm")
+            conf.set_input_format(DenseInputFormat)
+            conf.set("tpumr.dense.split.rows", HYB_MM_N // 4)
+            conf.set("tpumr.matmul.b", f"file://{work}/b.npy")
+            conf.set("tpumr.matmul.bf16", False)
+            conf.set_map_kernel("matmul-block")
+            conf.set_output_format(SequenceFileOutputFormat)
+            conf.set_num_reduce_tasks(0)
+            mm = hybrid_run(conf, "matmul", km)
+        check(not [th.name for th in threading.enumerate()
+                   if th.name.startswith(("heartbeat-", "task-",
+                                          "rpc-server", "jobmaster-"))],
+              "the cluster left threads running")
+
+        for row in runs:
+            tag = row["run"]
+            check(row["TPU_MAP_TASKS"] + row["CPU_MAP_TASKS"] == n_maps,
+                  f"hybrid {tag}: {row['TPU_MAP_TASKS']} + "
+                  f"{row['CPU_MAP_TASKS']} maps, expected {n_maps}")
+            check(row["TPU_MAP_TASKS"] >= 1 and row["CPU_MAP_TASKS"] >= 1,
+                  f"hybrid {tag}: placement {row['placement']} does not "
+                  "use both pools")
+            check(row["launches"] == {
+                "kmeans_assign_partials": row["TPU_MAP_TASKS"],
+                "kmeans_assign": 0}, f"hybrid {tag}: launches "
+                f"{row['launches']} for {row['TPU_MAP_TASKS']} GPU maps")
+            check(row["CPU_BATCH_MAP_TASKS"] == row["CPU_MAP_TASKS"],
+                  f"hybrid {tag}: {row['CPU_BATCH_MAP_TASKS']} of "
+                  f"{row['CPU_MAP_TASKS']} CPU maps on the batch runner")
+        ref = oracle(work, n, cents, km, compare=False)["centroids"]
+        for row in runs:
+            got = read_centroids(os.path.join(work, row["out"],
+                                              "part-00000"))
+            check(sorted(got) == list(range(K)),
+                  f"hybrid {row['run']}: clusters {sorted(got)}")
+            got = np.stack([got[i] for i in range(K)])
+            err = np.abs(got - ref)
+            row["max_abs_err"] = float(err.max())
+            check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
+                              np.abs(ref))),
+                  f"hybrid {row['run']}: centroids off the float64 oracle "
+                  f"by up to {err.max():.3g}")
+        r2 = runs[1]
+        check(r2["acceleration_factor"] > 1.0,
+              f"hybrid kmeans_round2: acceleration factor "
+              f"{r2['acceleration_factor']:.3f} (CPU map "
+              f"{r2['cpu_map_mean_s']:.4f} s, GPU map "
+              f"{r2['gpu_map_mean_s']:.4f} s) is not above 1")
+
+        blocks = {}
+        for name in sorted(os.listdir(os.path.join(work, "out-mm"))):
+            if name.startswith("part-"):
+                with open(os.path.join(work, "out-mm", name), "rb") as f:
+                    for row0, block in sequencefile.Reader(f):
+                        blocks[int(row0)] = np.asarray(block)
+        check(sorted(blocks) == list(range(0, HYB_MM_N, HYB_MM_N // 4)),
+              f"hybrid matmul: blocks at rows {sorted(blocks)}")
+        got = np.concatenate([blocks[r] for r in sorted(blocks)])
+        check(got.dtype == np.float32 and got.shape == (HYB_MM_N, HYB_MM_N),
+              f"hybrid matmul: output {got.dtype} {got.shape}")
+        a = torch.from_numpy(np.load(os.path.join(work, "a.npy"))).cuda()
+        b = torch.from_numpy(np.load(os.path.join(work, "b.npy"))).cuda()
+        err = (torch.from_numpy(got).cuda().double()
+               - a.double() @ b.double()).abs()
+        ratio = float((err / (a.double().abs() @ b.double().abs())).max())
+        mm |= {"max_abs_err": float(err.max()),
+               "max_err_over_scale": ratio, "err_bound": MM_ERR}
+        del a, b, err
+        log("hybrid_matmul " + json.dumps(mm))
+        check(ratio <= MM_ERR, f"hybrid matmul: |C - C64| reaches "
+              f"{ratio:.3g} of the f32 error scale, over {MM_ERR}")
+        secs = time.monotonic() - t_phase
+        log("hybrid_phase " + json.dumps({"seconds": secs}))
+        return {"runs": runs, "matmul": mm, "seconds": secs,
+                "launches": sum(r["launches"]["kmeans_assign_partials"]
+                                for r in runs)}
+    finally:
+        gpu_runner.clear_split_caches()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def matmul_bound_ms(m: int, k: int, n: int, peak_flops: float
@@ -1602,6 +1855,8 @@ def main() -> None:
                     help="K-Means points in the main-path job")
     ap.add_argument("--tera-rows", type=int, default=TERA_ROWS,
                     help="records of the terasort phase's 10 GB job")
+    ap.add_argument("--hybrid-points", type=int, default=HYB_N,
+                    help="K-Means points of the hybrid phase's jobs")
     ap.add_argument("--profile", action="store_true",
                     help="also profile two more warm jobs, device and host "
                          "(chiprun_out/)")
@@ -1634,6 +1889,7 @@ def main() -> None:
         rounds = rounds_phase(work, args.points, km)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    hybrid = hybrid_phase(km, args.hybrid_points)
     job2 = second_job(km)
     job3 = third_job(km)
     matmul_phase()
@@ -1645,7 +1901,8 @@ def main() -> None:
         "source": "tpumr_torch/csrc/kmeans_assign_partials.cu",
         "replaces": "tpumr/ops/kmeans.py:57",
         "launches": main["launches"]["kmeans_assign_partials"]
-        + rounds["launches"]["kmeans_assign_partials"],
+        + rounds["launches"]["kmeans_assign_partials"]
+        + hybrid["launches"],
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

@@ -39,7 +39,10 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
     assert "tpumr_torch.ops.kmeans" in report["imported"]
     for name in ("io.sequencefile", "io.compress", "mapred.total_order",
                  "mapred.device_shuffle", "parallel.device_sort",
-                 "examples.terasort"):
+                 "examples.terasort", "ipc.rpc", "mapred.job_in_progress",
+                 "mapred.scheduler", "mapred.jobtracker",
+                 "mapred.tasktracker", "mapred.shuffle_copier",
+                 "mapred.job_client", "mapred.mini_cluster"):
         assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 

@@ -35,6 +35,12 @@ class Configuration:
     def set(self, key: str, value: Any) -> None:
         self._values[key] = value
 
+    def __iter__(self):
+        """(key, value) of every key, set values over defaults."""
+        merged = dict(self._defaults)
+        merged.update(self._values)
+        return iter(merged.items())
+
     def get_int(self, key: str, default: int = 0) -> int:
         v = self.get(key)
         if v is None:

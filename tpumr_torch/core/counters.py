@@ -68,6 +68,15 @@ class Counters:
                 out.setdefault(group, {})[name] = v
         return out
 
+    @classmethod
+    def from_dict(cls, d: "dict[str, dict[str, int]]") -> "Counters":
+        """The inverse of :meth:`to_dict`, for counters off the wire."""
+        out = cls()
+        for group, names in (d or {}).items():
+            for name, v in names.items():
+                out.incr(group, name, v)
+        return out
+
     def merge(self, other: "Counters") -> None:
         """Add every counter of ``other`` into this set."""
         with other._lock:

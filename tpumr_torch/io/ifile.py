@@ -5,7 +5,10 @@ K-Means job does not compress map output). The file layout is the JAX
 package's: ``TIFL`` magic, then per partition a big-endian u32 length and a
 block holding a record count and length-prefixed key/value bytes. The index
 ``{"codec": "none", "partitions": [(offset, raw_length, part_length)]}``
-addresses one partition's segment without parsing the rest.
+addresses one partition's segment without parsing the rest; a node
+runner serves that segment's bytes to a remote reduce as they lie on disk
+(:func:`partition_bytes`), which parses them back
+(:func:`iter_transferred_segment`).
 """
 
 from __future__ import annotations
@@ -76,6 +79,24 @@ def read_partition(path: str, index: dict, partition: int
         (plen,) = struct.unpack(">I", f.read(4))
         raw = f.read(plen)
     return iter_segment(raw)
+
+
+def partition_bytes(stream: BinaryIO, index: dict, partition: int) -> bytes:
+    """One partition's segment as it lies on disk (the u32 length and the
+    block), for the shuffle server to send verbatim."""
+    off, _raw_len, part_len = index["partitions"][partition]
+    stream.seek(off)
+    return stream.read(part_len)
+
+
+def iter_transferred_segment(data: bytes, codec: str = "none"
+                             ) -> Iterator[tuple[bytes, bytes]]:
+    """The records of a segment as :func:`partition_bytes` gave it."""
+    if codec != "none":
+        raise ValueError(f"compressed map output ({codec}) is not "
+                         "supported by the port")
+    (plen,) = struct.unpack(">I", data[:4])
+    return iter_segment(data[4:4 + plen])
 
 
 def iter_segment(raw: bytes) -> Iterator[tuple[bytes, bytes]]:

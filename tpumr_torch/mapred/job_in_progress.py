@@ -1,0 +1,502 @@
+"""Per-job task bookkeeping and per-backend runtime profiling, on the job
+master.
+
+Counterpart of ``tpumr/mapred/job_in_progress.py``. The pieces the hybrid
+scheduler reads are kept exactly, so that both packages' schedulers see the
+same numbers from the same task statuses:
+
+- ``finished_cpu_maps`` / ``finished_tpu_maps`` and the running sums of
+  each backend's map runtimes (``status.runtime``, the node runner's
+  finish less start stamp), with the optional EWMA of
+  ``tpumr.profile.ewma`` (default off), folded in :meth:`_on_success`
+  (``:1043-1068`` there); :meth:`cpu_map_mean_time`,
+  :meth:`tpu_map_mean_time` and :meth:`acceleration_factor`
+  (``cpuMean / tpuMean``, 1.0 until both backends have a finished map;
+  ``:479-504``);
+- the pending sets and the host-locality cache behind
+  :meth:`obtain_new_map_task` (node-local split first, then the lowest
+  pending index; ``:659-707``) and :meth:`obtain_new_reduce_task` with
+  the reduce slow-start gate (``:872``);
+- :meth:`_on_failure`: a FAILED attempt counts toward
+  ``mapred.{map,reduce}.max.attempts`` and requeues its task, and the
+  job fails at the limit; a KILLED attempt requeues without counting;
+- the placement stamps (``run_on_tpu``, ``tpu_device_id``) on each task's
+  report at assignment, the placement timeline, :meth:`status_dict` and
+  the job's summed counters;
+- :class:`CompletionEventFeed`, the append-only map-completion feed that
+  reduces poll for map output locations.
+
+Left out (``ROADMAP.md``): speculative attempts, fetch-failure accounting,
+restart recovery, the progress-rate model, brownout holds, rack locality,
+and the TPU-to-CPU demotion and job-level accelerator quarantine
+(``_note_tpu_failure``, ``_cpu_only_maps``, ``tpu_disabled``). Where the
+JAX package demotes, the port does the reverse: a map whose attempt failed
+on an accelerator slot is offered to accelerator slots only from then on,
+so a failing kernel fails the job after ``mapred.map.max.attempts``
+instead of the map finishing on a CPU slot and hiding the fault.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+from tpumr_torch.core.counters import Counters
+from tpumr_torch.mapred.ids import JobID, TaskAttemptID, TaskID
+from tpumr_torch.mapred.task import Task, TaskReport, TaskState, TaskStatus
+
+#: defaults of the keys read here, the JAX package's (its confkeys registry)
+_DEFAULTS = {"mapred.reduce.tasks": 1, "mapred.map.max.attempts": 4,
+             "mapred.reduce.max.attempts": 4,
+             "mapred.reduce.slowstart.completed.maps": 0.05,
+             "mapred.job.priority": "NORMAL", "tpumr.profile.ewma": 0.0,
+             "mapred.job.map.memory.mb": 0, "mapred.job.reduce.memory.mb": 0}
+
+
+def _conf_value(conf: dict, key: str) -> Any:
+    v = conf.get(key)
+    return _DEFAULTS[key] if v is None else v
+
+
+class CompletionEventFeed:
+    """Append-only map-completion events. Writers append under the job
+    lock; a withdrawn output is marked ``OBSOLETE`` in place and announced
+    again as a tombstone, never removed, so an index once served names the
+    same event forever and readers slice by cursor without a lock."""
+
+    __slots__ = ("_events",)
+
+    def __init__(self) -> None:
+        self._events: "list[dict]" = []
+
+    def append(self, event: dict) -> None:
+        self._events.append(event)
+
+    def read(self, from_index: int, max_events: int) -> "tuple[list, int]":
+        """Up to ``max_events`` events from ``from_index``, and how many
+        remain after them."""
+        total = len(self._events)
+        frm = max(0, int(from_index))
+        if frm > total:
+            frm = 0
+        events = self._events[frm:frm + max(0, int(max_events))]
+        return events, max(0, total - frm - len(events))
+
+    def __iter__(self) -> Any:
+        return iter(self._events)
+
+
+class JobState:
+    RUNNING = "RUNNING"
+    SUCCEEDED = "SUCCEEDED"
+    FAILED = "FAILED"
+    KILLED = "KILLED"
+    TERMINAL = {SUCCEEDED, FAILED, KILLED}
+
+
+#: scheduling order of the priorities (``mapred.job.priority``)
+JOB_PRIORITIES = ("VERY_HIGH", "HIGH", "NORMAL", "LOW", "VERY_LOW")
+
+
+def normalize_priority(value: Any) -> str:
+    p = str(value).upper()
+    if p not in JOB_PRIORITIES:
+        raise ValueError(f"unknown job priority {value!r}; one of "
+                         f"{', '.join(JOB_PRIORITIES)}")
+    return p
+
+
+def priority_rank(priority: str) -> int:
+    """Sort key: a lower rank schedules first."""
+    return JOB_PRIORITIES.index(priority)
+
+
+@dataclass
+class TaskInProgress:
+    """One logical task, its attempts and its state."""
+
+    task_id: TaskID
+    partition: int
+    split: "dict | None" = None
+    state: str = "pending"            # pending | running | succeeded | failed
+    attempts: "dict[str, TaskStatus]" = field(default_factory=dict)
+    next_attempt: int = 0
+    failures: int = 0
+    successful_attempt: str = ""
+    report: TaskReport = None  # type: ignore[assignment]
+
+    def __post_init__(self) -> None:
+        if self.report is None:
+            self.report = TaskReport(self.task_id)
+
+    def new_attempt(self) -> TaskAttemptID:
+        a = TaskAttemptID(self.task_id, self.next_attempt)
+        self.next_attempt += 1
+        return a
+
+    @property
+    def is_map(self) -> bool:
+        return self.task_id.is_map
+
+    def running_attempts(self) -> "list[TaskStatus]":
+        return [s for s in self.attempts.values()
+                if s.state == TaskState.RUNNING]
+
+
+class JobInProgress:
+    def __init__(self, job_id: JobID, conf_dict: dict,
+                 splits: "list[dict]") -> None:
+        self.job_id = job_id
+        self.conf = dict(conf_dict)
+        self.num_reduces = int(_conf_value(self.conf, "mapred.reduce.tasks"))
+        self.state = JobState.RUNNING
+        self.start_time = time.time()
+        self.finish_time = 0.0
+        self.counters = Counters()
+        self.lock = threading.RLock()
+        self.max_map_attempts = int(_conf_value(self.conf,
+                                                "mapred.map.max.attempts"))
+        self.max_reduce_attempts = int(_conf_value(
+            self.conf, "mapred.reduce.max.attempts"))
+        self.slowstart = float(_conf_value(
+            self.conf, "mapred.reduce.slowstart.completed.maps"))
+        self.priority = normalize_priority(_conf_value(
+            self.conf, "mapred.job.priority"))
+        self.error = ""
+        self.maps = [TaskInProgress(TaskID(job_id, True, i), i, split=s)
+                     for i, s in enumerate(splits)]
+        self.reduces = [TaskInProgress(TaskID(job_id, False, r), r)
+                        for r in range(self.num_reduces)]
+        #: host -> pending-or-not split indexes stored there
+        self.host_cache: "dict[str, set[int]]" = {}
+        for i, s in enumerate(splits):
+            for h in (s or {}).get("locations", []) or []:
+                self.host_cache.setdefault(h, set()).add(i)
+        self._pending_maps = set(range(len(self.maps)))
+        self._pending_reduces = set(range(self.num_reduces))
+        #: maps with a FAILED accelerator attempt: accelerator slots only
+        self._gpu_only_maps: "set[int]" = set()
+        self.finished_maps = 0
+        self.finished_reduces = 0
+        #: set by the master once the job's output is committed or aborted:
+        #: clients see a terminal state only after it
+        self.finalized = threading.Event()
+        #: claimed under ``lock`` by the one caller that finalizes
+        self.finalize_started = False
+        # --- per-backend profiling: running sums, O(1) per update
+        self.finished_cpu_maps = 0
+        self.finished_tpu_maps = 0
+        self._cpu_time_sum = 0.0
+        self._tpu_time_sum = 0.0
+        self._ewma_alpha = float(_conf_value(self.conf,
+                                             "tpumr.profile.ewma"))
+        self._cpu_ewma = 0.0
+        self._tpu_ewma = 0.0
+        self.completion_events = CompletionEventFeed()
+        #: (seconds since submit, 'T' | 'c') per map assignment
+        self.placement_series: list = []
+        #: heartbeats in which the scheduler gave this job a CPU budget of
+        #: 0 (optional scheduling or ``minimize``) while a CPU slot was free
+        #: and a map pending: the placements the acceleration factor made
+        self.cpu_starved_heartbeats = 0
+
+    # ------------------------------------------------------------ queries
+
+    def pending_map_count(self) -> int:
+        return len(self._pending_maps)
+
+    def pending_reduce_count(self) -> int:
+        return len(self._pending_reduces)
+
+    def has_kernel(self) -> bool:
+        """The gate of the scheduler's accelerator pass: only a job naming
+        a kernel mapper (``tpumr.map.kernel``) gets accelerator slots."""
+        return bool(self.conf.get("tpumr.map.kernel"))
+
+    def cpu_map_mean_time(self) -> float:
+        """Mean runtime of the finished CPU maps; 0.0 until one finished,
+        so that the scheduler assigns unconditionally until then."""
+        if self._ewma_alpha and self._cpu_ewma:
+            return self._cpu_ewma
+        return self._cpu_time_sum / self.finished_cpu_maps \
+            if self.finished_cpu_maps else 0.0
+
+    def tpu_map_mean_time(self) -> float:
+        if self._ewma_alpha and self._tpu_ewma:
+            return self._tpu_ewma
+        return self._tpu_time_sum / self.finished_tpu_maps \
+            if self.finished_tpu_maps else 0.0
+
+    def acceleration_factor(self) -> float:
+        """cpuMean / tpuMean; 1.0 until both backends have a finished
+        map."""
+        cpu, tpu = self.cpu_map_mean_time(), self.tpu_map_mean_time()
+        if cpu > 0 and tpu > 0:
+            return cpu / tpu
+        return 1.0
+
+    def map_progress(self) -> float:
+        if not self.maps:
+            return 1.0
+        running = sum(max((s.progress for s in t.running_attempts()),
+                          default=0.0)
+                      for t in self.maps if t.state == "running")
+        return min(1.0, (self.finished_maps + running) / len(self.maps))
+
+    def reduce_progress(self) -> float:
+        if not self.reduces:
+            return 1.0
+        return self.finished_reduces / len(self.reduces)
+
+    def map_memory_mb(self) -> int:
+        return int(_conf_value(self.conf, "mapred.job.map.memory.mb"))
+
+    def reduce_memory_mb(self) -> int:
+        return int(_conf_value(self.conf, "mapred.job.reduce.memory.mb"))
+
+    # ------------------------------------------------------------ obtain
+
+    def obtain_new_map_task(self, host: str, run_on_tpu: bool,
+                            tpu_device_id: int = -1) -> "Task | None":
+        """The next pending map for a slot on ``host``: a split stored on
+        ``host`` first, else the lowest pending index; a CPU slot skips
+        the maps whose accelerator attempt failed. Stamps the placement on
+        the task's report."""
+        with self.lock:
+            if self.state != JobState.RUNNING:
+                return None
+            eligible = (self._pending_maps if run_on_tpu
+                        else self._pending_maps - self._gpu_only_maps)
+            if not eligible:
+                return None
+            local = self.host_cache.get(host, set()) & eligible
+            idx = min(local) if local else min(eligible)
+            self._pending_maps.discard(idx)
+            tip = self.maps[idx]
+            tip.state = "running"
+            self._record_placement(run_on_tpu)
+            attempt = tip.new_attempt()
+            tip.report.state = TaskState.RUNNING
+            tip.report.start_time = tip.report.start_time or time.time()
+            tip.report.run_on_tpu = run_on_tpu
+            tip.report.tpu_device_id = tpu_device_id
+            return Task(attempt, partition=idx, num_reduces=self.num_reduces,
+                        split=tip.split, num_maps=len(self.maps),
+                        run_on_tpu=run_on_tpu, tpu_device_id=tpu_device_id,
+                        memory_mb=self.map_memory_mb())
+
+    def obtain_new_reduce_task(self, host: str) -> "Task | None":
+        with self.lock:
+            if self.state != JobState.RUNNING or not self._pending_reduces:
+                return None
+            # slow-start: reduces wait for this share of the maps
+            if self.finished_maps < self.slowstart * max(1, len(self.maps)):
+                return None
+            idx = min(self._pending_reduces)
+            self._pending_reduces.discard(idx)
+            tip = self.reduces[idx]
+            tip.state = "running"
+            attempt = tip.new_attempt()
+            tip.report.state = TaskState.RUNNING
+            tip.report.start_time = tip.report.start_time or time.time()
+            return Task(attempt, partition=idx, num_reduces=self.num_reduces,
+                        num_maps=len(self.maps),
+                        memory_mb=self.reduce_memory_mb())
+
+    # ------------------------------------------------------------ updates
+
+    def update_task_status(self, status: TaskStatus,
+                           tracker_shuffle_addr: str = "") -> None:
+        with self.lock:
+            tip = self._tip_of(status.attempt_id.task)
+            if tip is None:
+                return
+            aid = str(status.attempt_id)
+            prev = tip.attempts.get(aid)
+            if prev is not None and prev.state in (TaskState.FAILED,
+                                                   TaskState.KILLED):
+                return   # already settled: a replay must not resurrect it
+            tip.attempts[aid] = status
+            tip.report.progress = max(tip.report.progress, status.progress)
+            if status.state == TaskState.SUCCEEDED:
+                self._on_success(tip, status, tracker_shuffle_addr)
+            elif status.state in (TaskState.FAILED, TaskState.KILLED):
+                self._on_failure(tip, status)
+
+    def _tip_of(self, task_id: TaskID) -> "TaskInProgress | None":
+        arr = self.maps if task_id.is_map else self.reduces
+        return arr[task_id.id] if task_id.id < len(arr) else None
+
+    def tip_of_attempt(self, attempt_id: str) -> "TaskInProgress | None":
+        try:
+            return self._tip_of(TaskAttemptID.parse(attempt_id).task)
+        except (ValueError, IndexError):
+            return None
+
+    def _on_success(self, tip: TaskInProgress, status: TaskStatus,
+                    shuffle_addr: str) -> None:
+        if tip.state == "succeeded":
+            return   # a duplicate report: the first completion won
+        tip.state = "succeeded"
+        tip.successful_attempt = str(status.attempt_id)
+        tip.report.state = TaskState.SUCCEEDED
+        tip.report.progress = 1.0
+        tip.report.finish_time = status.finish_time or time.time()
+        tip.report.successful_attempt = str(status.attempt_id)
+        if status.counters:
+            self.counters.merge(Counters.from_dict(status.counters))
+        if tip.is_map:
+            self._pending_maps.discard(tip.partition)
+            self.finished_maps += 1
+            runtime = status.runtime
+            a = self._ewma_alpha
+            if status.run_on_tpu:
+                self.finished_tpu_maps += 1
+                self._tpu_time_sum += runtime
+                if a:
+                    self._tpu_ewma = (runtime if not self._tpu_ewma
+                                      else a * runtime
+                                      + (1 - a) * self._tpu_ewma)
+            else:
+                self.finished_cpu_maps += 1
+                self._cpu_time_sum += runtime
+                if a:
+                    self._cpu_ewma = (runtime if not self._cpu_ewma
+                                      else a * runtime
+                                      + (1 - a) * self._cpu_ewma)
+            self.completion_events.append({
+                "map_index": tip.partition,
+                "attempt_id": str(status.attempt_id),
+                "shuffle_addr": shuffle_addr, "status": "SUCCEEDED"})
+        else:
+            self._pending_reduces.discard(tip.partition)
+            self.finished_reduces += 1
+        if (self.finished_maps == len(self.maps)
+                and self.finished_reduces == len(self.reduces)):
+            self.state = JobState.SUCCEEDED
+            self.finish_time = time.time()
+
+    def _on_failure(self, tip: TaskInProgress, status: TaskStatus) -> None:
+        if tip.state == "succeeded":
+            return
+        if status.state == TaskState.FAILED:
+            # KILLED attempts (lost trackers, lost commit races) do not
+            # count toward the attempt limit
+            tip.failures += 1
+            if tip.is_map and status.run_on_tpu:
+                self._gpu_only_maps.add(tip.partition)
+        limit = (self.max_map_attempts if tip.is_map
+                 else self.max_reduce_attempts)
+        if status.state == TaskState.FAILED and tip.failures >= limit:
+            self.state = JobState.FAILED
+            self.finish_time = time.time()
+            self.error = (f"task {tip.task_id} failed {tip.failures} times; "
+                          f"last: {status.diagnostics}")
+            return
+        aid = str(status.attempt_id)
+        if any(s.state == TaskState.RUNNING and str(s.attempt_id) != aid
+               for s in tip.attempts.values()):
+            tip.state = "running"   # another attempt is still running
+            return
+        tip.state = "pending"
+        if tip.is_map:
+            self._pending_maps.add(tip.partition)
+        else:
+            self._pending_reduces.add(tip.partition)
+
+    def requeue_lost_attempts(self, attempt_ids: "list[str]") -> "list[str]":
+        """A node runner was lost: its running attempts are killed and
+        their tasks requeued, and its finished maps too where the job has
+        reduces (their outputs lived there). Returns the attempts whose
+        published outputs were withdrawn.
+
+        An attempt launched there that never reported a status is killed
+        too. The JAX package skips it (``:1329-1340`` there: no status, no
+        branch), so its task stays running and the job never ends."""
+        withdrawn: "list[str]" = []
+        with self.lock:
+            for aid in attempt_ids:
+                tip = self.tip_of_attempt(aid)
+                if tip is None:
+                    continue
+                st = tip.attempts.get(aid)
+                if st is None and tip.state == "running":
+                    st = tip.attempts[aid] = TaskStatus(
+                        attempt_id=TaskAttemptID.parse(aid),
+                        is_map=tip.is_map)
+                if st is not None and st.state == TaskState.RUNNING:
+                    st.state = TaskState.KILLED
+                    self._on_failure(tip, st)
+                elif (tip.is_map and tip.state == "succeeded"
+                      and tip.successful_attempt == aid
+                      and self.num_reduces > 0
+                      and self.state == JobState.RUNNING):
+                    tip.state = "pending"
+                    tip.successful_attempt = ""
+                    self.finished_maps -= 1
+                    if st is not None and st.run_on_tpu:
+                        self.finished_tpu_maps -= 1
+                        self._tpu_time_sum -= st.runtime
+                    elif st is not None:
+                        self.finished_cpu_maps -= 1
+                        self._cpu_time_sum -= st.runtime
+                    self._pending_maps.add(tip.partition)
+                    for e in list(self.completion_events):
+                        if e["attempt_id"] == aid \
+                                and e.get("status") != "OBSOLETE":
+                            e["status"] = "OBSOLETE"
+                            self.completion_events.append(
+                                dict(e, status="OBSOLETE"))
+                    withdrawn.append(aid)
+        return withdrawn
+
+    def kill(self) -> bool:
+        """To KILLED; True only for the caller that made the change."""
+        with self.lock:
+            if self.state in JobState.TERMINAL:
+                return False
+            self.state = JobState.KILLED
+            self.finish_time = time.time()
+            return True
+
+    # ------------------------------------------------------------ wire
+
+    def _record_placement(self, run_on_tpu: bool) -> None:
+        """One map assignment's backend, stamped relative to submission.
+        Caller holds ``lock``."""
+        self.placement_series.append(
+            (round(time.time() - self.start_time, 3),
+             "T" if run_on_tpu else "c"))
+
+    def placement_timeline(self) -> dict:
+        """The assignment sequence ('TcccTT...') and each assignment's
+        seconds since submission: the hybrid scheduler's convergence
+        curve."""
+        with self.lock:
+            series = list(self.placement_series)
+        return {"seq": "".join(b for _, b in series),
+                "t": [t for t, _ in series]}
+
+    def status_dict(self) -> dict:
+        with self.lock:
+            return {
+                "job_id": str(self.job_id),
+                "state": self.state,
+                "priority": self.priority,
+                "map_progress": self.map_progress(),
+                "reduce_progress": self.reduce_progress(),
+                "finished_maps": self.finished_maps,
+                "finished_tpu_maps": self.finished_tpu_maps,
+                "finished_cpu_maps": self.finished_cpu_maps,
+                "num_maps": len(self.maps),
+                "num_reduces": len(self.reduces),
+                "cpu_map_mean_time": self.cpu_map_mean_time(),
+                "tpu_map_mean_time": self.tpu_map_mean_time(),
+                "acceleration_factor": self.acceleration_factor(),
+                "placement_seq": "".join(
+                    b for _, b in self.placement_series[-512:]),
+                "cpu_starved_heartbeats": self.cpu_starved_heartbeats,
+                "error": self.error,
+            }

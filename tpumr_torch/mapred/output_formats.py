@@ -175,8 +175,16 @@ class FileOutputCommitter:
         self.fs.delete(Path(self.out).child(TEMP_DIR), recursive=True)
         self.fs.write_bytes(Path(self.out).child(SUCCESS_MARKER), b"")
 
+    def abort_job(self) -> None:
+        self.fs.delete(Path(self.out).child(TEMP_DIR), recursive=True)
+
     def work_dir(self, attempt_id: str) -> str:
         return str(Path(self.out).child(TEMP_DIR).child(attempt_id))
+
+    def needs_commit(self, attempt_id: str) -> bool:
+        """Whether the attempt wrote files to promote."""
+        wd = self.work_dir(attempt_id)
+        return self.fs.exists(wd) and bool(self.fs.list_files(wd))
 
     def setup_task(self, attempt_id: str) -> str:
         wd = self.work_dir(attempt_id)
@@ -194,3 +202,6 @@ class FileOutputCommitter:
             if not self.fs.exists(dst):
                 self.fs.rename(st.path, dst)
         self.fs.delete(wd, recursive=True)
+
+    def abort_task(self, attempt_id: str) -> None:
+        self.fs.delete(self.work_dir(attempt_id), recursive=True)

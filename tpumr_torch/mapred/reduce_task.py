@@ -1,8 +1,10 @@
 """Reduce-side execution: read the map outputs' partition, merge, group,
 reduce, write.
 
-Counterpart of ``tpumr/mapred/reduce_task.py`` on the local path: each map
-output is a file of this process, read directly (no network shuffle);
+Counterpart of ``tpumr/mapred/reduce_task.py``. On the local path each map
+output is a file of this process, read directly; on a cluster the reduce
+is given a source that fetches each map's segment from the node runner
+that serves it (``shuffle_copier.RemoteSegmentSource``);
 the merge is a k-way heap merge over the sorted segments; groups follow the
 job's output-key comparator. The attempt runs on its own localised conf
 (``map_task.localize_task_conf``), and a failed attempt aborts its reducer
@@ -25,16 +27,20 @@ from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
 
-def run_reduce_task(conf: Any, task: Task,
-                    map_outputs: "list[tuple[str, dict]]",
+def run_reduce_task(conf: Any, task: Task, map_outputs: Any,
                     reporter: "Reporter | None" = None) -> None:
-    """Execute one reduce attempt over ``map_outputs``, the (path, index)
-    of every map task's IFile, into the attempt's committer work dir."""
+    """Execute one reduce attempt over ``map_outputs`` into the attempt's
+    committer work dir. ``map_outputs`` is the (path, index) of every map
+    task's IFile in this process, or a source with
+    ``segments(partition)`` that fetches them from the node runners
+    (``shuffle_copier.RemoteSegmentSource``)."""
     reporter = reporter or Reporter()
     conf = localize_task_conf(conf, task)
     sk = conf.get_output_key_comparator().sort_key
-    segments = [ifile.read_partition(path, index, task.partition)
-                for path, index in map_outputs]
+    fetch = getattr(map_outputs, "segments", None)
+    segments = (fetch(task.partition) if fetch is not None else
+                [ifile.read_partition(path, index, task.partition)
+                 for path, index in map_outputs])
     merged = ifile.merge_sorted(segments, sk)
 
     wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
