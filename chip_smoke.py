@@ -50,7 +50,21 @@ one fetch per map, the same count bit for bit on the second run), the same
 job on the CPU batch runner, and python -m tpumr_torch.cli examples pi in a
 process of its own; then bench.py's 200 MB wordcount text through the
 wordcount kernel (RawTextInputFormat) and the grep kernel
-(TextInputFormat), each against an oracle over the whole file. TeraSort
+(TextInputFormat), each against an oracle over the whole file. Spill:
+host jobs of the shuffle's spill-and-merge path under the default cuda
+device, launching no kernel, each printing one JSON line (seconds, maps,
+reduces, spills per map, merge, spill and combine counters, peak RSS): the
+per-record wordcount (WordCountCpuMapper over TextInputFormat, one record
+per word) over the text's first 64 MiB split at io.sort.mb 100 and
+io.sort.spill.percent 0.8, 2 reduces, whose counts must equal an oracle and
+whose map must spill at least 3 times, as its buffer reckons them;
+Hadoop's Sort benchmark pair, randomwriter (6 maps of 128 MiB: upstream
+writes 1 GB a map) then sort --total-order (12 maps of 64 MiB, 2 reduces,
+io.sort.mb 32), which must take at least 2 merge passes, keep the input's
+record count and order-independent checksum, and write keys that never
+decrease across its parts in order; and secondarysort and join (inner and
+outer) through python -m tpumr_torch.cli, each in a process of its own,
+against oracles computed here. TeraSort
 (BASELINE config 5, 10 GB): teragen of 100,000,000 records (16 maps), the
 device-shuffled terasort (4 ranges) cold then warm, each printing its
 stage seconds, peak host and card memory and counters (TPU_SHUFFLE_RECORDS
@@ -1444,6 +1458,307 @@ def text_phase() -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+#: the spill phase. Per-record wordcount: the first SPILL_WC_MB MiB split of
+#: the text phase's text (its lines, whole) at io.sort.mb SPILL_WC_SORT_MB
+#: and io.sort.spill.percent 0.8, 2 reduces. Hadoop's Sort benchmark pair:
+#: randomwriter's SORT_GEN_MAPS maps of SORT_BYTES_PER_MAP bytes (upstream
+#: writes 1 GB a map), then sort --total-order in 64 MiB splits with
+#: SORT_REDUCES reduces at io.sort.mb SORT_IO_SORT_MB
+SPILL_WC_MB, SPILL_WC_SORT_MB = 64, 100
+SORT_GEN_MAPS, SORT_BYTES_PER_MAP = 6, 128 << 20
+SORT_REDUCES, SORT_IO_SORT_MB = 2, 32
+#: secondarysort's and join's seeded inputs: firsts x seconds, and keys of
+#: each side (of JOIN_KEYS distinct)
+SS_FIRSTS, SS_SECONDS = 50, 200
+JOIN_LEFT, JOIN_RIGHT, JOIN_KEYS = 2_000, 1_500, 500
+
+
+class SpillCount:
+    """Spills per map task in a ``with`` block: MapOutputBuffer.sort_and_
+    spill wrapped to count the calls that write a file, by the task's
+    local dir."""
+
+    def __enter__(self) -> "SpillCount":
+        from tpumr_torch.mapred.map_task import MapOutputBuffer
+        self.by_task: dict = {}
+        self._cls = MapOutputBuffer
+        self._real = real = MapOutputBuffer.sort_and_spill
+        by_task = self.by_task
+
+        def counted(buf) -> None:
+            if buf._buf:
+                by_task[buf.local_dir] = by_task.get(buf.local_dir, 0) + 1
+            real(buf)
+
+        MapOutputBuffer.sort_and_spill = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._cls.sort_and_spill = self._real
+
+
+def spill_counters(result) -> dict:
+    from tpumr_torch.core.counters import TaskCounter
+    return {name: result.counters.value(TaskCounter.FRAMEWORK_GROUP, name)
+            for name in (TaskCounter.MAP_OUTPUT_RECORDS,
+                         TaskCounter.SPILLED_RECORDS,
+                         TaskCounter.MERGE_PASSES,
+                         TaskCounter.MERGE_PASS_SEGMENTS,
+                         TaskCounter.COMBINE_INPUT_RECORDS,
+                         TaskCounter.COMBINE_OUTPUT_RECORDS,
+                         TaskCounter.REDUCE_INPUT_RECORDS,
+                         TaskCounter.REDUCE_OUTPUT_RECORDS)}
+
+
+def spill_job(label: str, conf, spills: SpillCount) -> tuple:
+    """Run one job on the card's default device; print its JSON line."""
+    from tpumr_torch.mapred.local_runner import run_job
+    with RssPeak() as rss:
+        t = time.monotonic()
+        result = run_job(conf)
+        secs = time.monotonic() - t
+    check(result.successful, f"spill {label} job failed")
+    row = {"spill_job": label, "seconds": secs, "maps": result.num_maps,
+           "reduces": result.num_reduces, "map_s": result.map_seconds,
+           "reduce_s": result.reduce_seconds,
+           "spills_per_map": sorted(spills.by_task.values()),
+           "rss_start_gb": rss.start / 1e9,
+           "peak_rss_gb": rss.peak / 1e9} | spill_counters(result)
+    log(json.dumps(row))
+    return result, row
+
+
+def per_record_wordcount(work: str) -> dict:
+    """WordCountCpuMapper over TextInputFormat (one record per word) on the
+    text phase's first 64 MiB split, LongSumReducer as combiner and
+    reducer, 2 reduces, io.sort.mb 100 and io.sort.spill.percent 0.8: each
+    map spills at least 3 times as the buffer reckons its bytes
+    (len(k) + len(v) + 16 a record against the threshold) and merges. The
+    counts must equal collections.Counter over the same bytes."""
+    from collections import Counter
+
+    from tpumr_torch.io.writable import serialize
+    from tpumr_torch.mapred.jobconf import JobConf
+    data = write_text(work)
+    cut = data.index(b"\n", SPILL_WC_MB * 1024 * 1024 - 1)
+    data = data[:cut]
+    with open(os.path.join(work, "wc.txt"), "wb") as f:
+        f.write(data)
+    conf = JobConf()
+    conf.set_input_paths(f"file://{work}/wc.txt")
+    conf.set_output_path(f"file://{work}/wc-out")
+    conf.set("mapred.mapper.class",
+             "tpumr_torch.ops.wordcount.WordCountCpuMapper")
+    conf.set("mapred.reducer.class",
+             "tpumr_torch.examples.basic.LongSumReducer")
+    conf.set("mapred.combiner.class",
+             "tpumr_torch.examples.basic.LongSumReducer")
+    conf.set("io.sort.mb", SPILL_WC_SORT_MB)
+    conf.set("io.sort.spill.percent", 0.8)
+    conf.set_num_reduce_tasks(2)
+    with SpillCount() as spills:
+        result, row = spill_job("per_record_wordcount", conf, spills)
+    row["mb_per_s"] = len(data) / row["seconds"] / 1e6
+    row["bytes"] = len(data)
+    got = {}
+    for r in range(2):
+        got |= read_pairs(os.path.join(work, "wc-out", f"part-{r:05d}"))
+    want = Counter(data.split())
+    check(got == {w.decode(): c for w, c in want.items()},
+          f"per-record wordcount: the counts differ from the oracle "
+          f"({len(got)} words, {len(want)} expected)")
+    # every word of the text is 8 bytes, so every record counts the same
+    rec = len(serialize(next(iter(want)))) + len(serialize(1)) + 16
+    threshold = int(SPILL_WC_SORT_MB * 1024 * 1024 * 0.8)
+    per_spill = -(-threshold // rec)
+    n = sum(want.values())
+    reckoned = n // per_spill + (1 if n % per_spill else 0)
+    row["spills_reckoned"] = reckoned
+    log("spill_wordcount_check " + json.dumps(
+        {"records": n, "record_bytes": rec, "threshold": threshold,
+         "spills_reckoned": reckoned, "spills": row["spills_per_map"]}))
+    check(result.num_maps == 1 and row["spills_per_map"] == [reckoned]
+          and reckoned >= 3, f"per-record wordcount: spills "
+          f"{row['spills_per_map']}, reckoned {reckoned}, want >= 3")
+    check(row["COMBINE_INPUT_RECORDS"] >= row["MAP_OUTPUT_RECORDS"] == n,
+          f"per-record wordcount: counters {row}")
+    return row
+
+
+def seq_records_checksum(path: str, inputs: bool = False) -> dict:
+    """The record count and an order-independent checksum (the sums,
+    mod 2**64, of two 64-bit blake2b digests of each serialized record) of
+    every part of a SequenceFile directory; for output parts, whether the
+    keys are non-decreasing across the parts in order."""
+    import hashlib
+
+    from tpumr_torch.io import sequencefile
+    from tpumr_torch.io.writable import deserialize
+    count, s1, s2, prev, ordered = 0, 0, 0, None, True
+    names = sorted(n for n in os.listdir(path) if n.startswith("part-"))
+    for name in names:
+        with open(os.path.join(path, name), "rb") as f:
+            for kb, vb in sequencefile.Reader(f).iter_raw():
+                h = hashlib.blake2b(kb + b"\x00" + vb, digest_size=16,
+                                    key=len(kb).to_bytes(4, "little"))
+                d = h.digest()
+                s1 = (s1 + int.from_bytes(d[:8], "little")) & (2**64 - 1)
+                s2 = (s2 + int.from_bytes(d[8:], "little")) & (2**64 - 1)
+                count += 1
+                if not inputs:
+                    key = deserialize(kb)
+                    ordered &= prev is None or prev <= key
+                    prev = key
+    out = {"records": count, "sum1": s1, "sum2": s2}
+    if not inputs:
+        out["keys_non_decreasing"] = bool(ordered)
+    return out
+
+
+def sort_benchmark(work: str) -> dict:
+    """Hadoop's Sort benchmark pair through the port: examples randomwriter
+    (SORT_GEN_MAPS maps of SORT_BYTES_PER_MAP bytes, map-only), then
+    examples sort --total-order over its SequenceFiles (64 MiB splits,
+    SORT_REDUCES reduces, io.sort.mb SORT_IO_SORT_MB, io.sort.factor 10):
+    each map spills about 3 times and merges, each reduce merges one
+    segment a map in an intermediate pass and a final one. The output's
+    records equal the input's (count and checksum) and its keys never
+    decrease across the parts in order."""
+    from tpumr_torch.examples import random_writer, sort
+    data, out = f"{work}/rw", f"{work}/sorted"
+    t = time.monotonic()
+    check(random_writer.randomwriter(
+        [f"file://{data}", "-m", str(SORT_GEN_MAPS), "--bytes-per-map",
+         str(SORT_BYTES_PER_MAP)]) == 0, "randomwriter failed")
+    gen_s = time.monotonic() - t
+    size = sum(os.path.getsize(os.path.join(data, n))
+               for n in os.listdir(data) if n.startswith("part-"))
+    log("spill_randomwriter " + json.dumps(
+        {"seconds": gen_s, "maps": SORT_GEN_MAPS, "bytes": size}))
+    results = []
+    real_run_job = sort.run_job
+    sort.run_job = lambda conf: results.append(
+        spill_job("sort", conf, spills)[0]) or results[-1]
+    try:
+        with SpillCount() as spills:
+            t = time.monotonic()
+            rc = sort.sort([f"file://{data}", f"file://{out}", "-r",
+                            str(SORT_REDUCES), "--total-order",
+                            "-D", f"io.sort.mb={SORT_IO_SORT_MB}"])
+            prog_s = time.monotonic() - t
+    finally:
+        sort.run_job = real_run_job
+    check(rc == 0 and len(results) == 1, "examples sort failed")
+    result = results[0]
+    c = spill_counters(result)
+    t = time.monotonic()
+    sums_in = seq_records_checksum(data, inputs=True)
+    sums_out = seq_records_checksum(out)
+    row = {"program_s": prog_s, "input_bytes": size,
+           "checksum_s": time.monotonic() - t, "input": sums_in,
+           "output": sums_out, "MERGE_PASSES": c["MERGE_PASSES"]}
+    log("spill_sort_check " + json.dumps(row))
+    check(c["MERGE_PASSES"] >= 2, f"sort: {c['MERGE_PASSES']} merge passes")
+    check(sums_out.pop("keys_non_decreasing"), "sort: keys decrease "
+          "across the parts in order")
+    check(sums_in == sums_out and sums_out["records"] ==
+          c["MAP_OUTPUT_RECORDS"], "sort: the output's records are not the "
+          "input's")
+    return {"randomwriter_s": gen_s, "sort_s": prog_s} | row
+
+
+def cli_example(args: "list[str]") -> float:
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpumr_torch.cli", "examples"] + args,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"examples {args[0]} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return time.monotonic() - t
+
+
+def read_text_parts(path: str) -> "list[str]":
+    lines = []
+    for name in sorted(os.listdir(path)):
+        if name.startswith("part-"):
+            with open(os.path.join(path, name)) as f:
+                lines.extend(f.read().splitlines())
+    return lines
+
+
+def secondarysort_and_join(work: str) -> dict:
+    """examples secondarysort and examples join (inner and outer) through
+    python -m tpumr_torch.cli, each in a process of its own, on inputs
+    from default_rng(9), against oracles computed here: one line per first
+    with its seconds ascending; the cross product of each key's left and
+    right payloads in input order."""
+    rng = np.random.default_rng(9)
+    pairs = [(f, int(s)) for f in range(SS_FIRSTS)
+             for s in rng.permutation(SS_SECONDS)]
+    order = rng.permutation(len(pairs))
+    with open(f"{work}/ss.txt", "w") as f:
+        f.write("".join(f"{pairs[i][0]} {pairs[i][1]}\n" for i in order))
+    secs = {"secondarysort": cli_example(
+        ["secondarysort", f"file://{work}/ss.txt", f"file://{work}/ss-out",
+         "-r", "2"])}
+    got = sorted(read_text_parts(f"{work}/ss-out"))
+    want = sorted(f"{f}\t{list(range(SS_SECONDS))}"
+                  for f in range(SS_FIRSTS))
+    check(got == want, f"secondarysort: {len(got)} lines differ from the "
+          "oracle")
+    sides = {}
+    for side, n in (("L", JOIN_LEFT), ("R", JOIN_RIGHT)):
+        keys = rng.integers(0, JOIN_KEYS, size=n)
+        sides[side] = [(f"k{int(k):04d}", f"{side.lower()}{i}")
+                       for i, k in enumerate(keys)]
+        with open(f"{work}/{side}.txt", "w") as f:
+            f.write("".join(f"{k}\t{side}|{p}\n" for k, p in sides[side]))
+    for outer in (False, True):
+        name = "join-outer" if outer else "join"
+        secs[name] = cli_example(
+            ["join", f"file://{work}/L.txt", f"file://{work}/R.txt",
+             f"file://{work}/{name}"] + (["--outer"] if outer else []))
+        by_key: dict = {}
+        for side in ("L", "R"):
+            for k, p in sides[side]:
+                by_key.setdefault(k, ({"L": [], "R": []}))[side].append(p)
+        want = []
+        for k, lr in by_key.items():
+            lefts, rights = lr["L"], lr["R"]
+            if outer:
+                lefts, rights = lefts or [""], rights or [""]
+            want.extend(f"{k}\t{lp}\t{rp}" for lp in lefts for rp in rights)
+        got = read_text_parts(f"{work}/{name}")
+        check(sorted(got) == sorted(want), f"{name}: {len(got)} lines, the "
+              f"oracle {len(want)}")
+        secs[f"{name}_lines"] = len(got)
+    log("spill_examples " + json.dumps(secs))
+    return secs
+
+
+def spill_phase() -> dict:
+    """The host shuffle's spills and merges on the card's machine, under
+    the default cuda device and launching no kernel: the per-record
+    wordcount at io.sort.mb 100 (at least 3 spills), randomwriter then
+    sort --total-order (Hadoop's Sort benchmark pair, upstream 1 GB a map
+    cut to 128 MiB a map: 6 maps, about 768 MiB), and secondarysort and
+    join through the CLI. Each job prints one JSON line: its seconds,
+    maps, reduces, spills per map, merge, spill and combine counters and
+    peak RSS."""
+    t_phase = time.monotonic()
+    work = tempfile.mkdtemp(prefix="tpumr_torch-spill-")
+    try:
+        out = {"wordcount": per_record_wordcount(work)}
+        out["sort"] = sort_benchmark(work)
+        out["examples"] = secondarysort_and_join(work)
+        out["seconds"] = time.monotonic() - t_phase
+        log("spill_phase " + json.dumps({"seconds": out["seconds"]}))
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 #: BASELINE.json config 5, "TeraSort 10GB": 10^8 records of 100 bytes,
 #: generated by 16 maps and sorted into 4 ranges (bench.py:749-752)
 TERA_ROWS = 100_000_000
@@ -1894,6 +2209,7 @@ def main() -> None:
     job3 = third_job(km)
     matmul_phase()
     text_phase()
+    spill_phase()
     terasort_phase(args.tera_rows)
     f, a = fused["main"], shapes["job2"]
     kernels = [{
@@ -1920,6 +2236,7 @@ def main() -> None:
         "library_ms": a["library_ms"], "checked": True}]
     check(all(kn["launches"] > 0 for kn in kernels),
           "a kernel never launched on the path that drives it")
+    log(smi[0])   # again, beside the results at the end of the output
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,11 @@
 """The port's text record path (tpumr_torch.fs.inmem, FileSplit, the line
 readers and text input formats, RecordBatch, the record branch of
-gpu_runner.stage_batch, combine.combined_stream, the map task's spill
-threshold) against the JAX package's, on the same bytes made from numpy
+gpu_runner.stage_batch, combine.combined_stream, the map task's spills
+at the threshold) against the JAX package's, on the same bytes made from numpy
 seeds. Everything here is host code: records, splits, offsets and counters
 must be equal, not close.
 """
 
-import os
 import re
 from types import SimpleNamespace
 
@@ -327,10 +326,11 @@ def test_per_record_wordcount_raises_past_the_spill_threshold(tmp_path,
                                                               opt_out):
     """Mirrors tpumr/mapred/map_task.py::MapOutputBuffer.collect at the
     spill threshold (io.sort.mb x io.sort.spill.percent): the per-record
-    wordcount mapper emits one record per word, which the JAX package
-    spills and merges. The port spills once at the end of a task and
-    raises where the JAX package would spill early, rather than writing a
-    short output: the job fails and commits nothing."""
+    wordcount mapper emits one record per word, so at io.sort.mb=1 each map
+    spills several times and merges its spills, with the combiner over each
+    spill and over the merge. The name is the one the test had while the
+    port raised there; both packages' jobs now succeed with the same part
+    file and the same spill and combine counters."""
     rng = np.random.default_rng(1)
     words = [f"word{i:04d}".encode() for i in range(512)]
     idx = rng.integers(0, 512, size=(4000, 12))
@@ -355,22 +355,20 @@ def test_per_record_wordcount_raises_past_the_spill_threshold(tmp_path,
         confs.append(conf)
     conf, jconf = confs
     conf.set("tpumr_torch.device", "cpu")
-    with pytest.raises(RuntimeError, match="spilling more than once is not "
-                                           "ported"):
-        run_job(conf)
-    assert not os.path.exists(tmp_path / "out-tpumr_torch" / "_SUCCESS")
-    assert not os.path.exists(tmp_path / "out-tpumr_torch" / "part-00000")
-    jres = jax_run_job(jconf)
-    assert jres.successful
-    assert jres.counters.value(TaskCounter.FRAMEWORK_GROUP,
-                               TaskCounter.MAP_OUTPUT_RECORDS) == 4000 * 12
-    lines = (tmp_path / "out-tpumr" / "part-00000").read_text().splitlines()
+    res, jres = run_job(conf), jax_run_job(jconf)
+    assert res.successful and jres.successful
+    for name in (TaskCounter.MAP_OUTPUT_RECORDS, TaskCounter.SPILLED_RECORDS,
+                 TaskCounter.COMBINE_INPUT_RECORDS,
+                 TaskCounter.COMBINE_OUTPUT_RECORDS):
+        assert res.counters.value(TaskCounter.FRAMEWORK_GROUP, name) == \
+            jres.counters.value(TaskCounter.FRAMEWORK_GROUP, name), name
+    assert res.counters.value(TaskCounter.FRAMEWORK_GROUP,
+                              TaskCounter.MAP_OUTPUT_RECORDS) == 4000 * 12
+    # spilled twice at least: the combiner ran over more than the map output
+    assert res.counters.value(TaskCounter.FRAMEWORK_GROUP,
+                              TaskCounter.COMBINE_INPUT_RECORDS) > 4000 * 12
+    text = (tmp_path / "out-tpumr_torch" / "part-00000").read_text()
+    assert text == (tmp_path / "out-tpumr" / "part-00000").read_text()
+    lines = text.splitlines()
     assert sum(int(line.split("\t")[1]) for line in lines) == 4000 * 12
-    # one map under the threshold is written in full, combined
-    conf.set("io.sort.mb", 100)
-    conf.set_output_path(f"file://{tmp_path}/out-port-100")
-    res = run_job(conf)
-    assert res.successful
-    assert (tmp_path / "out-port-100" / "part-00000").read_text() == \
-        "\n".join(lines) + "\n"
     assert re.fullmatch(r"word\d{4}\t\d+", lines[0])

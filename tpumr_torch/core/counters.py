@@ -20,6 +20,9 @@ class TaskCounter:
     REDUCE_INPUT_RECORDS = "REDUCE_INPUT_RECORDS"
     REDUCE_OUTPUT_RECORDS = "REDUCE_OUTPUT_RECORDS"
     SPILLED_RECORDS = "SPILLED_RECORDS"
+    #: intermediate merge passes (io/merger.py), and the runs they merged
+    MERGE_PASSES = "MERGE_PASSES"
+    MERGE_PASS_SEGMENTS = "MERGE_PASS_SEGMENTS"
     FRAMEWORK_GROUP = "tpumr.TaskCounter"
 
 

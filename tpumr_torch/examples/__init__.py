@@ -9,8 +9,9 @@ program (rc 255), as in the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import sys
-from typing import Callable
+from typing import Any, Callable
 
 _PROGRAMS: dict[str, tuple[Callable[[list[str]], int], str]] = {}
 
@@ -22,6 +23,19 @@ def register(name: str, description: str):
     return deco
 
 
+def add_conf_option(ap: argparse.ArgumentParser) -> None:
+    """``-D key=value`` for the job conf, as the port's programs take it."""
+    ap.add_argument("-D", dest="defs", action="append", default=[],
+                    metavar="k=v", help="set a job conf key "
+                    "(tpumr_torch.device=cpu runs on the CPU)")
+
+
+def apply_conf_option(conf: Any, defs: "list[str]") -> None:
+    for kv in defs:
+        k, _, v = kv.partition("=")
+        conf.set(k.strip(), v.strip())
+
+
 def programs() -> dict[str, str]:
     _load_all()
     return {k: v[1] for k, v in sorted(_PROGRAMS.items())}
@@ -29,7 +43,9 @@ def programs() -> dict[str, str]:
 
 def _load_all() -> None:
     # imported for their registrations
-    from tpumr_torch.examples import basic, terasort  # noqa: F401
+    from tpumr_torch.examples import (basic, join,  # noqa: F401
+                                      random_writer, secondary_sort, sort,
+                                      terasort)
 
 
 def main(argv: list[str]) -> int:

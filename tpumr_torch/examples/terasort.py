@@ -19,7 +19,8 @@ import argparse
 
 import numpy as np
 
-from tpumr_torch.examples import register
+from tpumr_torch.examples import (add_conf_option, apply_conf_option,
+                                  register)
 from tpumr_torch.fs.filesystem import FileSystem
 from tpumr_torch.mapred.api import (IdentityReducer, Mapper, RawComparator,
                                     Reducer)
@@ -143,25 +144,13 @@ class TeraValidateReducer(Reducer):
             self._prev_last = last
 
 
-def _defs(ap: argparse.ArgumentParser) -> None:
-    ap.add_argument("-D", dest="defs", action="append", default=[],
-                    metavar="k=v", help="set a job conf key "
-                    "(tpumr_torch.device=cpu runs on the CPU)")
-
-
-def _apply_defs(conf: JobConf, defs: "list[str]") -> None:
-    for kv in defs:
-        k, _, v = kv.partition("=")
-        conf.set(k.strip(), v.strip())
-
-
 @register("teragen", "generate 100-byte terasort records")
 def teragen(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(prog="tpumr_torch examples teragen")
     ap.add_argument("num_rows", type=int)
     ap.add_argument("output")
     ap.add_argument("-m", "--maps", type=int, default=2)
-    _defs(ap)
+    add_conf_option(ap)
     args = ap.parse_args(argv)
     out = args.output.rstrip("/")
     fs = FileSystem.get(out)
@@ -183,7 +172,7 @@ def teragen(argv: list[str]) -> int:
     conf.set_mapper_class(TeraGenMapper)
     conf.set_output_format(SequenceFileOutputFormat)
     conf.set_num_reduce_tasks(0)
-    _apply_defs(conf, args.defs)
+    apply_conf_option(conf, args.defs)
     ok = run_job(conf).successful
     fs.delete(f"{out}.teragen-in", recursive=True)
     return 0 if ok else 1
@@ -197,11 +186,11 @@ def terasort(argv: list[str]) -> int:
     ap.add_argument("-r", "--reduces", type=int, default=2)
     ap.add_argument("--device-shuffle", action="store_true",
                     help="sort on the device instead of the host shuffle")
-    _defs(ap)
+    add_conf_option(ap)
     args = ap.parse_args(argv)
     conf = make_terasort_conf(args.input, args.output, args.reduces,
                               device_shuffle=args.device_shuffle)
-    _apply_defs(conf, args.defs)
+    apply_conf_option(conf, args.defs)
     return 0 if run_job(conf).successful else 1
 
 
@@ -234,7 +223,7 @@ def teravalidate(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(prog="tpumr_torch examples teravalidate")
     ap.add_argument("input", help="terasort output directory")
     ap.add_argument("output")
-    _defs(ap)
+    add_conf_option(ap)
     args = ap.parse_args(argv)
     conf = JobConf()
     conf.set_job_name("teravalidate")
@@ -248,7 +237,7 @@ def teravalidate(argv: list[str]) -> int:
     conf.set_mapper_class(TeraValidateMapper)
     conf.set_reducer_class(TeraValidateReducer)
     conf.set_num_reduce_tasks(1)
-    _apply_defs(conf, args.defs)
+    apply_conf_option(conf, args.defs)
     if not run_job(conf).successful:
         return 1
     fs = FileSystem.get(args.output)

@@ -4,8 +4,12 @@ Counterpart of ``tpumr/io/compress.py``, trimmed to the codecs that the
 standard library gives (``:81-146``): ``none``, ``zlib`` (also ``default``),
 ``gzip``, ``bzip2`` and ``lzma``, under the JAX package's names, so a
 SequenceFile header written by either package names a codec the other
-reads. The native ``tlz`` codec (``native/tlz/``, ``:148-312``) is not
-ported: asking for it raises, and so does reading a file written with it.
+reads. Each codec also gives a streaming ``decompressor()`` (``:28-79``):
+compressed chunks in, raw bytes out as they become available, which the
+merge of compressed spill segments reads through
+(``ifile.iter_chunked_segment``). The native ``tlz`` codec
+(``native/tlz/``, ``:148-312``) is not ported: asking for it raises, and so
+does reading a file written with it.
 """
 
 from __future__ import annotations
@@ -16,6 +20,31 @@ import lzma
 import zlib
 
 
+class Decompressor:
+    """``feed(data)`` returns the raw bytes available so far; ``flush()``
+    the rest."""
+
+    def feed(self, data: bytes) -> bytes:
+        return data
+
+    def flush(self) -> bytes:
+        return b""
+
+
+class _ObjDecompressor(Decompressor):
+    """Over a stdlib ``decompressobj``-style object."""
+
+    def __init__(self, obj) -> None:
+        self._obj = obj
+
+    def feed(self, data: bytes) -> bytes:
+        return self._obj.decompress(data)
+
+    def flush(self) -> bytes:
+        fl = getattr(self._obj, "flush", None)
+        return fl() if fl is not None else b""
+
+
 class CompressionCodec:
     name = "none"
 
@@ -24,6 +53,10 @@ class CompressionCodec:
 
     def decompress(self, data: bytes) -> bytes:
         return data
+
+    def decompressor(self) -> Decompressor:
+        """A streaming decompressor (the identity for ``none``)."""
+        return Decompressor()
 
 
 class ZlibCodec(CompressionCodec):
@@ -38,6 +71,9 @@ class ZlibCodec(CompressionCodec):
     def decompress(self, data: bytes) -> bytes:
         return zlib.decompress(data)
 
+    def decompressor(self) -> Decompressor:
+        return _ObjDecompressor(zlib.decompressobj())
+
 
 class GzipCodec(CompressionCodec):
     name = "gzip"
@@ -47,6 +83,9 @@ class GzipCodec(CompressionCodec):
 
     def decompress(self, data: bytes) -> bytes:
         return gzip.decompress(data)
+
+    def decompressor(self) -> Decompressor:
+        return _ObjDecompressor(zlib.decompressobj(16 + zlib.MAX_WBITS))
 
 
 class Bzip2Codec(CompressionCodec):
@@ -58,6 +97,9 @@ class Bzip2Codec(CompressionCodec):
     def decompress(self, data: bytes) -> bytes:
         return bz2.decompress(data)
 
+    def decompressor(self) -> Decompressor:
+        return _ObjDecompressor(bz2.BZ2Decompressor())
+
 
 class LzmaCodec(CompressionCodec):
     name = "lzma"
@@ -67,6 +109,9 @@ class LzmaCodec(CompressionCodec):
 
     def decompress(self, data: bytes) -> bytes:
         return lzma.decompress(data)
+
+    def decompressor(self) -> Decompressor:
+        return _ObjDecompressor(lzma.LZMADecompressor())
 
 
 _REGISTRY: dict[str, type[CompressionCodec]] = {

@@ -1,14 +1,18 @@
 """IFile: the map-output spill format, and the k-way merge over segments.
 
-Counterpart of ``tpumr/io/ifile.py``, trimmed to uncompressed segments (the
-K-Means job does not compress map output). The file layout is the JAX
-package's: ``TIFL`` magic, then per partition a big-endian u32 length and a
-block holding a record count and length-prefixed key/value bytes. The index
-``{"codec": "none", "partitions": [(offset, raw_length, part_length)]}``
-addresses one partition's segment without parsing the rest; a node
-runner serves that segment's bytes to a remote reduce as they lie on disk
+Counterpart of ``tpumr/io/ifile.py``. The file layout is the JAX
+package's: ``TIFL`` magic, then per partition a big-endian u32 length and
+a payload, the partition's block compressed whole by the file's codec
+(``none`` by default, ``mapred.compress.map.output`` on the map side). A
+block holds a record count and length-prefixed key/value bytes. The index
+``{"codec": name, "partitions": [(offset, raw_length, part_length)]}``
+addresses one partition's segment without parsing the rest; a node runner
+serves that segment's bytes to a remote reduce as they lie on disk
 (:func:`partition_bytes`), which parses them back
-(:func:`iter_transferred_segment`).
+(:func:`iter_transferred_segment`). A merge reads a segment straight from
+its file in bounded chunks (:func:`file_region_chunks`), through the
+codec's streaming decompressor (:func:`iter_chunked_segment`), so no
+segment is ever held whole.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import heapq
 import struct
 from typing import Any, BinaryIO, Callable, Iterable, Iterator
 
+from tpumr_torch.io.compress import get_codec
 from tpumr_torch.io.writable import vint_at, vint_into
 
 MAGIC = b"TIFL"
@@ -24,11 +29,12 @@ MAGIC = b"TIFL"
 
 class Writer:
     """Writes one spill file: partitions in order, each a block of sorted
-    records. Call ``start_partition`` / ``append_raw`` / ``end_partition``,
-    then ``close`` for the index."""
+    records, compressed whole by ``codec``. Call ``start_partition`` /
+    ``append_raw`` / ``end_partition``, then ``close`` for the index."""
 
-    def __init__(self, stream: BinaryIO) -> None:
+    def __init__(self, stream: BinaryIO, codec: str = "none") -> None:
         self._out = stream
+        self._codec = get_codec(codec)
         self._out.write(MAGIC)
         self._pos = len(MAGIC)
         self._partitions: list[tuple[int, int, int]] = []
@@ -56,34 +62,35 @@ class Writer:
         head = bytearray()
         vint_into(head, self._nrec)
         raw = bytes(head) + bytes(self._buf)
-        self._out.write(struct.pack(">I", len(raw)))
-        self._out.write(raw)
-        self._partitions.append((self._pos, len(raw), len(raw) + 4))
-        self._pos += len(raw) + 4
+        payload = self._codec.compress(raw)
+        self._out.write(struct.pack(">I", len(payload)))
+        self._out.write(payload)
+        self._partitions.append((self._pos, len(raw), len(payload) + 4))
+        self._pos += len(payload) + 4
         self._buf = None
 
     def close(self) -> dict:
         self._out.flush()
-        return {"codec": "none", "partitions": list(self._partitions)}
+        return {"codec": self._codec.name,
+                "partitions": list(self._partitions)}
 
 
 def read_partition(path: str, index: dict, partition: int
                    ) -> Iterator[tuple[bytes, bytes]]:
-    """One partition's records from a spill file, given its index."""
-    if index.get("codec", "none") != "none":
-        raise ValueError(f"compressed map output ({index['codec']}) is not "
-                         "supported by the port")
+    """One partition's records from a spill file, given its index (the
+    whole segment read at once)."""
     off, _raw_len, _part_len = index["partitions"][partition]
     with open(path, "rb") as f:
         f.seek(off)
         (plen,) = struct.unpack(">I", f.read(4))
-        raw = f.read(plen)
-    return iter_segment(raw)
+        payload = f.read(plen)
+    codec = get_codec(index.get("codec", "none"))
+    return iter_segment(codec.decompress(payload))
 
 
 def partition_bytes(stream: BinaryIO, index: dict, partition: int) -> bytes:
     """One partition's segment as it lies on disk (the u32 length and the
-    block), for the shuffle server to send verbatim."""
+    payload), for the shuffle server to send verbatim."""
     off, _raw_len, part_len = index["partitions"][partition]
     stream.seek(off)
     return stream.read(part_len)
@@ -91,12 +98,10 @@ def partition_bytes(stream: BinaryIO, index: dict, partition: int) -> bytes:
 
 def iter_transferred_segment(data: bytes, codec: str = "none"
                              ) -> Iterator[tuple[bytes, bytes]]:
-    """The records of a segment as :func:`partition_bytes` gave it."""
-    if codec != "none":
-        raise ValueError(f"compressed map output ({codec}) is not "
-                         "supported by the port")
+    """The records of a segment as :func:`partition_bytes` gave it,
+    decoded by the map output's ``codec``."""
     (plen,) = struct.unpack(">I", data[:4])
-    return iter_segment(data[4:4 + plen])
+    return iter_segment(get_codec(codec).decompress(data[4:4 + plen]))
 
 
 def iter_segment(raw: bytes) -> Iterator[tuple[bytes, bytes]]:
@@ -116,9 +121,84 @@ def iter_segment(raw: bytes) -> Iterator[tuple[bytes, bytes]]:
         raise EOFError("truncated segment") from None
 
 
+def iter_chunked_segment(chunks: Iterable[bytes], codec: str
+                         ) -> Iterator[tuple[bytes, bytes]]:
+    """The records of one segment's payload (no length prefix) streamed as
+    compressed chunks. At most one chunk's decompressed bytes, and the tail
+    of a record that straddles two, are held at a time."""
+    dec = get_codec(codec).decompressor()
+    it = iter(chunks)
+    buf = b""
+    pos = 0
+    eof = False
+
+    def ensure(need: int) -> None:
+        """Grow ``buf`` until ``need`` bytes remain past ``pos``."""
+        nonlocal buf, pos, eof
+        while len(buf) - pos < need:
+            if eof:
+                raise EOFError("truncated segment stream")
+            piece = next(it, None)
+            if piece is None:
+                eof = True
+            out = dec.flush() if piece is None else dec.feed(piece)
+            if out:
+                buf = buf[pos:] + out
+                pos = 0
+
+    def vint() -> int:
+        nonlocal pos
+        shift = result = 0
+        while True:
+            if pos >= len(buf):
+                ensure(1)
+            b = buf[pos]
+            pos += 1
+            result |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return result
+            shift += 7
+
+    n = vint()
+    for _ in range(n):
+        klen = vint()
+        ensure(klen)
+        k = buf[pos:pos + klen]
+        pos += klen
+        vlen = vint()
+        ensure(vlen)
+        v = buf[pos:pos + vlen]
+        pos += vlen
+        yield k, v
+
+
+def file_region_chunks(path: str, offset: int, length: int,
+                       chunk_bytes: int = 1 << 18) -> Iterator[bytes]:
+    """A byte region of a local file in chunks of at most ``chunk_bytes``.
+    The file is opened for each chunk and closed before the chunk is
+    yielded: a merge keeps one such stream open per segment, and a wide
+    merge must not hold a descriptor for each."""
+    pos = offset
+    remaining = length
+    while remaining > 0:
+        with open(path, "rb") as f:
+            f.seek(pos)
+            piece = f.read(min(chunk_bytes, remaining))
+        if not piece:
+            raise EOFError(f"truncated spill file {path}")
+        pos += len(piece)
+        remaining -= len(piece)
+        yield piece
+
+
 def merge_sorted(segments: "list[Iterable[tuple[bytes, bytes]]]",
-                 sort_key: Callable[[bytes], Any]
+                 sort_key: "Callable[[bytes], Any] | None"
                  ) -> Iterator[tuple[bytes, bytes]]:
-    """K-way merge of sorted (key, value) streams. Stable: equal keys come
-    out in segment order, as in the JAX package's merge."""
+    """K-way merge of sorted (key, value) streams, ordered by
+    ``sort_key`` of the key bytes (the bytes themselves when None). Stable:
+    equal keys come out in segment order, as in the JAX package's merge."""
+    if len(segments) == 1:
+        return iter(segments[0])
+    if sort_key is None:
+        return heapq.merge(*segments, key=lambda kv: kv[0])
     return heapq.merge(*segments, key=lambda kv: sort_key(kv[0]))

@@ -26,6 +26,8 @@ _T_DICT = 9
 
 #: the tag byte of a ``bytes`` value: the fixed-width record frames
 _TAG_BYTES = bytes((_T_BYTES,))
+_TAG_TEXT = bytes((_T_TEXT,))
+_TAG_INT = bytes((_T_INT,))
 
 
 def vint_into(buf: bytearray, value: int) -> None:
@@ -54,6 +56,8 @@ def vint_at(d: bytes, pos: int) -> "tuple[int, int]":
 
 
 def vint_bytes(value: int) -> bytes:
+    if 0 <= value < 0x80:
+        return bytes((value,))
     buf = bytearray()
     vint_into(buf, value)
     return bytes(buf)
@@ -84,6 +88,18 @@ def _unzigzag(v: int) -> int:
 
 
 def serialize(obj: Any) -> bytes:
+    """The typed binary form of ``obj``. ``bytes``, ``str`` and ``int``
+    take a direct path (``type() is``, so ``bool`` and numpy scalars take
+    the general one): a map output pays two of these a record, three
+    under the hash partitioner."""
+    t = type(obj)
+    if t is bytes:
+        return _TAG_BYTES + vint_bytes(len(obj)) + obj
+    if t is str:
+        b = obj.encode("utf-8")
+        return _TAG_TEXT + vint_bytes(len(b)) + b
+    if t is int:
+        return _TAG_INT + vint_bytes(_zigzag(obj))
     buf = bytearray()
     _enc(buf, obj)
     return bytes(buf)
@@ -137,6 +153,14 @@ def _enc(buf: bytearray, obj: Any) -> None:
 
 
 def deserialize(data: bytes) -> Any:
+    """The value :func:`serialize` encoded, with a direct path for a short
+    ``bytes`` or ``str`` (a sort key is decoded on every comparison)."""
+    if len(data) > 1 and data[1] < 0x80 and len(data) == data[1] + 2:
+        tag = data[0]
+        if tag == _T_BYTES:
+            return bytes(data[2:])
+        if tag == _T_TEXT:
+            return bytes(data[2:]).decode("utf-8")
     try:
         return _read_at(data, 0)[0]
     except IndexError:

@@ -18,6 +18,8 @@ DEFAULTS: dict[str, Any] = {
     "mapred.map.tasks": 1,
     "io.sort.mb": 100,
     "io.sort.spill.percent": 0.8,
+    "io.sort.factor": 10,
+    "mapred.compress.map.output": False,
 }
 
 
@@ -104,6 +106,15 @@ class JobConf(Configuration):
             "mapred.output.key.comparator.class", DeserializingComparator),
             self)
 
+    def set_output_value_grouping_comparator(self, cls: type) -> None:
+        """Reduce groups run under this comparator, while the merge keeps
+        the output-key comparator's order (the secondary-sort seam)."""
+        self.set_class("mapred.output.value.groupfn.class", cls)
+
+    def get_output_value_grouping_comparator(self) -> Any:
+        cls = self.get_class("mapred.output.value.groupfn.class")
+        return new_instance(cls, self) if cls is not None else None
+
     # ------------------------------------------------------------ kernel
 
     def set_map_kernel(self, name: str) -> None:
@@ -130,3 +141,17 @@ class JobConf(Configuration):
     @property
     def spill_percent(self) -> float:
         return self.get_float("io.sort.spill.percent")
+
+    @property
+    def sort_factor(self) -> int:
+        """Runs merged at most at once (map spills and reduce merges)."""
+        return self.get_int("io.sort.factor")
+
+    @property
+    def compress_map_output(self) -> str:
+        """The codec of the map output: ``none`` unless
+        ``mapred.compress.map.output``, then
+        ``mapred.map.output.compression.codec`` (``zlib`` by default)."""
+        if self.get_boolean("mapred.compress.map.output"):
+            return self.get("mapred.map.output.compression.codec", "zlib")
+        return "none"

@@ -15,7 +15,8 @@ and has no reduce phase. A device-shuffled job
 reduce task (``device_shuffle.prepare_device_shuffle_job``, on the runner's
 copy of the conf), which sorts every map's dense output on the job's
 device and writes the job's ranges (``:68-70``, ``:138-151``); any other
-job runs one reduce task per partition over the maps' IFiles.
+job runs one reduce task per partition over lazy views of the maps' IFiles
+(``shuffle_copier.LocalSegmentSource``).
 
 The entry points run on ``cuda`` unless the caller asks for the CPU with
 ``device="cpu"`` or the conf key ``tpumr_torch.device=cpu``
@@ -52,6 +53,7 @@ from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.map_task import run_map_task
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.reduce_task import run_reduce_task
+from tpumr_torch.mapred.shuffle_copier import LocalSegmentSource
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
@@ -157,7 +159,8 @@ class LocalJobRunner:
                 stages = run_device_reduce(
                     conf, task, local_dense_fetch(map_outputs), reporter)
             else:
-                run_reduce_task(conf, task, map_outputs, reporter)
+                run_reduce_task(conf, task, LocalSegmentSource(map_outputs),
+                                reporter)
             committer.commit_task(str(attempt))
             counters.merge(reporter.counters)
             counters.incr(JobCounter.GROUP, JobCounter.LAUNCHED_REDUCE_TASKS)

@@ -1,19 +1,22 @@
-"""Map-side execution: run the split through its runner, partition and sort
-the output, combine it and write one IFile spill; or, in a map-only job,
-write through the job's output format.
+"""Map-side execution: run the split through its runner, then collect,
+partition, sort and spill the output, combine each spill, and merge the
+spills into the task's one IFile; or, in a map-only job, write through the
+job's output format.
 
 Counterpart of ``tpumr/mapred/map_task.py``. Every attempt runs on its own
-copy of the job conf carrying its identity (:func:`localize_task_conf`). The
-runner is chosen as the JAX package chooses it (``:248-265``, ``:438-451``):
-the device runner for an accelerator task; on a CPU slot the batch runner
-when the job names a kernel with a host twin (``map_batch_cpu``) and
-``tpumr.cpu.batch.map`` is not false, else the job's per-record runner over
-the split's counted reader (:func:`_counted_reader`). The task's output is
-written once, at its end, through the job's combiner where it has one
-(``MapOutputBuffer.flush``, the single spill of ``:106-145``). Spilling
-several times and merging the spills is not ported: a map output that
-reaches the point where the JAX package would spill early (``io.sort.mb`` ×
-``io.sort.spill.percent``) raises instead of writing a short output.
+copy of the job conf carrying its identity (:func:`localize_task_conf`),
+with ``tpumr.task.work.dir`` set to its committer work dir (``:271, 297``).
+The runner is chosen as the JAX package chooses it (``:248-265``,
+``:438-451``): the device runner for an accelerator task; on a CPU slot
+the batch runner when the job names a kernel with a host twin
+(``map_batch_cpu``) and ``tpumr.cpu.batch.map`` is not false, else the
+job's per-record runner over the split's counted reader
+(:func:`_counted_reader`). :class:`MapOutputBuffer` is the JAX package's
+(``:30-204``): a spill at every crossing of ``io.sort.mb`` ×
+``io.sort.spill.percent``, the combiner over each spill, and a
+bounded-fan-in merge of several spills at ``io.sort.factor``
+(``io/merger.BoundedMerge``), all under the map output's codec
+(``mapred.compress.map.output``).
 
 A device-shuffled job's maps write one dense file each
 (``device_shuffle.DenseMapOutputBuffer``, the seam of ``:300-318``); an
@@ -28,26 +31,33 @@ runs record by record.
 from __future__ import annotations
 
 import os
+import shutil
 import time
-from typing import Any, Iterator
+from typing import Any, Iterable, Iterator
 
 from tpumr_torch.core.counters import BackendCounter, TaskCounter
 from tpumr_torch.io import ifile
+from tpumr_torch.io.merger import BoundedMerge
 from tpumr_torch.io.recordbatch import RecordBatch
 from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred.api import OutputCollector, Reporter
+from tpumr_torch.mapred.combine import combined_stream
 from tpumr_torch.mapred.device_shuffle import (DenseMapOutputBuffer,
                                                is_device_shuffle)
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
+from tpumr_torch.mapred.shuffle_copier import spill_region_segment
 from tpumr_torch.mapred.split import DenseSplit, InputSplit
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
 
 class MapOutputBuffer:
-    """In-memory partitioned key/value buffer, written as one sorted
-    spill when the task ends, each partition through the job's combiner
-    where it has one."""
+    """In-memory partitioned key/value buffer, spilled sorted at every
+    threshold crossing and merged into one IFile when the task ends.
+
+    A record counts ``len(k) + len(v) + 16`` bytes against the threshold
+    ``io.sort.mb`` MiB × ``io.sort.spill.percent``. The JAX package's
+    ``collect_raw_batch`` is not ported: nothing calls it there."""
 
     def __init__(self, conf: Any, num_partitions: int, local_dir: str,
                  reporter: Reporter) -> None:
@@ -58,9 +68,11 @@ class MapOutputBuffer:
         self.partitioner = new_instance(conf.get_partitioner_class(), conf)
         self.sort_key = conf.get_output_key_comparator().sort_key
         self.combiner_cls = conf.get_combiner_class()
+        self.codec = conf.compress_map_output
         self._buf: list[tuple[int, bytes, bytes]] = []
         self._bytes = 0
         self._threshold = int(conf.sort_mb * 1024 * 1024 * conf.spill_percent)
+        self._spills: list[tuple[str, dict]] = []
         os.makedirs(local_dir, exist_ok=True)
 
     def collect(self, key: Any, value: Any) -> None:
@@ -71,48 +83,104 @@ class MapOutputBuffer:
         self._buf.append((part, kb, vb))
         self._bytes += len(kb) + len(vb) + 16
         if self._bytes >= self._threshold:
-            raise RuntimeError(
-                f"map output reached {self._bytes} bytes (io.sort.mb x "
-                "io.sort.spill.percent): spilling more than once is not "
-                "ported")
-        self.reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
-                                   TaskCounter.MAP_OUTPUT_RECORDS)
-        self.reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
-                                   TaskCounter.MAP_OUTPUT_BYTES,
-                                   len(kb) + len(vb))
+            self.sort_and_spill()
 
-    def flush(self) -> tuple[str, dict]:
-        """Sort by (partition, key) and write the task's one IFile, each
-        non-empty output's partitions through the combiner
-        (``combine.combined_stream``). Returns (path, index)."""
-        from tpumr_torch.mapred.combine import combined_stream
+    def sort_and_spill(self) -> None:
+        """Sort the buffer by (partition, key) and write it as
+        ``spill{N}.out``, each partition through the combiner where the
+        job has one. ``SPILLED_RECORDS`` counts the buffered records, and
+        the map output counters are brought up to date (once a spill,
+        not once a record)."""
+        if not self._buf:
+            return
+        group = TaskCounter.FRAMEWORK_GROUP
+        self.reporter.incr_counter(group, TaskCounter.MAP_OUTPUT_RECORDS,
+                                   len(self._buf))
+        self.reporter.incr_counter(group, TaskCounter.MAP_OUTPUT_BYTES,
+                                   self._bytes - 16 * len(self._buf))
         sk = self.sort_key
         self._buf.sort(key=lambda rec: (rec[0], sk(rec[1])))
-        path = os.path.join(self.local_dir, "file.out")
+        path = os.path.join(self.local_dir, f"spill{len(self._spills)}.out")
         with open(path, "wb") as f:
-            w = ifile.Writer(f)
+            w = ifile.Writer(f, codec=self.codec)
             idx = 0
             for part in range(self.n_parts):
                 w.start_partition()
                 lo = idx
                 while idx < len(self._buf) and self._buf[idx][0] == part:
                     idx += 1
-                records: Iterator[tuple[bytes, bytes]] = \
-                    (rec[1:] for rec in self._buf[lo:idx])
-                if self.combiner_cls is not None and self._buf:
-                    records = combined_stream(self.conf, self.combiner_cls,
-                                              sk, records, self.reporter)
-                for kb, vb in records:
+                for kb, vb in self._combined(
+                        rec[1:] for rec in self._buf[lo:idx]):
                     w.append_raw(kb, vb)
                 w.end_partition()
             index = w.close()
-        if self._buf:
-            self.reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
-                                       TaskCounter.SPILLED_RECORDS,
-                                       len(self._buf))
+        self.reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
+                                   TaskCounter.SPILLED_RECORDS,
+                                   len(self._buf))
+        self._spills.append((path, index))
         self._buf.clear()
         self._bytes = 0
-        return path, index
+
+    def _combined(self, records: Iterable[tuple[bytes, bytes]]
+                  ) -> Iterator[tuple[bytes, bytes]]:
+        """``records`` through the job's combiner, if it has one."""
+        if self.combiner_cls is None:
+            return iter(records)
+        return combined_stream(self.conf, self.combiner_cls, self.sort_key,
+                               records, self.reporter)
+
+    def flush(self) -> tuple[str, dict]:
+        """Spill what is buffered, then make the task's ``file.out``: with
+        no spill, ``n`` empty partitions; with one, the spill renamed (its
+        combiner is not run again); with more, their merge
+        (:meth:`_merge_spills`). Returns (path, index)."""
+        self.sort_and_spill()
+        final_path = os.path.join(self.local_dir, "file.out")
+        if not self._spills:
+            with open(final_path, "wb") as f:
+                w = ifile.Writer(f, codec=self.codec)
+                for _ in range(self.n_parts):
+                    w.start_partition()
+                    w.end_partition()
+                index = w.close()
+            return final_path, index
+        if len(self._spills) == 1:
+            path, index = self._spills[0]
+            os.replace(path, final_path)
+            return final_path, index
+        return self._merge_spills(final_path)
+
+    def _merge_spills(self, final_path: str) -> tuple[str, dict]:
+        """Each partition of every spill, streamed from the spill files
+        and merged at ``io.sort.factor`` (intermediate runs under
+        ``merge-tmp``), through the combiner again, into ``final_path``.
+        The spills and ``merge-tmp`` are removed afterwards, and
+        ``merge-tmp`` also when the merge fails."""
+        run_dir = os.path.join(self.local_dir, "merge-tmp")
+        try:
+            with open(final_path, "wb") as f:
+                w = ifile.Writer(f, codec=self.codec)
+                for part in range(self.n_parts):
+                    w.start_partition()
+                    segs = [spill_region_segment(p, idx, part)
+                            for p, idx in self._spills]
+                    bm = BoundedMerge(segs, self.sort_key,
+                                      self.conf.sort_factor,
+                                      run_dir=run_dir,
+                                      reporter=self.reporter,
+                                      prefix=f"spill-p{part}")
+                    try:
+                        for kb, vb in self._combined(iter(bm)):
+                            w.append_raw(kb, vb)
+                    finally:
+                        bm.close()
+                    w.end_partition()
+                index = w.close()
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+        for p, _ in self._spills:
+            os.remove(p)
+        return final_path, index
 
 
 def localize_task_conf(conf: Any, task: Task) -> Any:
@@ -159,6 +227,7 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
 
     if task.num_reduces == 0:
         wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
+        conf.set("tpumr.task.work.dir", wd)   # lib.MultipleOutputs' seam
         writer = new_instance(conf.get_output_format(), conf) \
             .get_record_writer(conf, wd, task.partition)
         ok = False
@@ -172,15 +241,21 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
             abort = None if ok else getattr(writer, "abort", None)
             (abort or writer.close)()
         out: tuple[str, dict] = ("", {})
-    elif is_device_shuffle(conf):
-        buffer = DenseMapOutputBuffer(conf, local_dir, reporter)
-        if not _identity_dense_fast_path(conf, in_fmt, split, buffer,
-                                         reporter):
-            run_mapper(OutputCollector(buffer.collect))
-        out = buffer.flush()
     else:
-        buffer = MapOutputBuffer(conf, task.num_reduces, local_dir, reporter)
-        run_mapper(OutputCollector(buffer.collect))
+        if conf.get("mapred.output.dir"):
+            # side files of a job with reduces go to the attempt's work
+            # dir, made only where something writes there
+            conf.set("tpumr.task.work.dir", FileOutputCommitter(
+                conf).work_dir(str(task.attempt_id)))
+        if is_device_shuffle(conf):
+            buffer: Any = DenseMapOutputBuffer(conf, local_dir, reporter)
+            if not _identity_dense_fast_path(conf, in_fmt, split, buffer,
+                                             reporter):
+                run_mapper(OutputCollector(buffer.collect))
+        else:
+            buffer = MapOutputBuffer(conf, task.num_reduces, local_dir,
+                                     reporter)
+            run_mapper(OutputCollector(buffer.collect))
         out = buffer.flush()
     reporter.incr_counter(BackendCounter.GROUP, backend_tasks)
     reporter.incr_counter(BackendCounter.GROUP, backend_ms,

@@ -1,16 +1,26 @@
-"""Reduce-side execution: read the map outputs' partition, merge, group,
-reduce, write.
+"""Reduce-side execution: the map outputs' segments of this partition,
+merged, grouped, reduced and written.
 
-Counterpart of ``tpumr/mapred/reduce_task.py``. On the local path each map
-output is a file of this process, read directly; on a cluster the reduce
-is given a source that fetches each map's segment from the node runner
-that serves it (``shuffle_copier.RemoteSegmentSource``);
-the merge is a k-way heap merge over the sorted segments; groups follow the
-job's output-key comparator. The attempt runs on its own localised conf
-(``map_task.localize_task_conf``), and a failed attempt aborts its reducer
+Counterpart of ``tpumr/mapred/reduce_task.py``. The segments come from a
+source's ``segments(partition)``: lazy views over the map outputs' files
+in this process (``shuffle_copier.LocalSegmentSource``) or each map's
+segment fetched from the node runner that serves it
+(``shuffle_copier.RemoteSegmentSource``), and they are closed when the
+attempt ends, however it ends (``:54-104``). The merge is bounded by
+``io.sort.factor`` (``io/merger.BoundedMerge``, ``:108-126``), with its
+intermediate runs under ``tpumr.task.local.dir`` where the node runner
+sets it. It orders by the output-key comparator; the reduce groups run
+under the grouping comparator (``mapred.output.value.groupfn.class``)
+where the job has one, else under the output-key comparator (``:47-48``).
+The attempt runs on its own localised conf
+(``map_task.localize_task_conf``), ``tpumr.task.work.dir`` is set before
+the reducer is configured, and a reducer with ``begin_task(collector,
+reporter)`` is given the collector before the first group, even where
+there is none (``:134-138, 173-175``). A failed attempt aborts its reducer
 and writer where they can abort, so that a partly fed reducer never
 publishes (``KMeansCentroidUpdateReducer`` writes next-round state in
-``close``).
+``close``). The pipeline engine's output tee (``HandoffWriter``,
+``:150-166``) is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator
 
 from tpumr_torch.core.counters import TaskCounter
-from tpumr_torch.io import ifile
+from tpumr_torch.io.merger import BoundedMerge
 from tpumr_torch.io.writable import deserialize
 from tpumr_torch.mapred.api import IdentityReducer, OutputCollector, Reporter
 from tpumr_torch.mapred.map_task import localize_task_conf
@@ -27,23 +37,43 @@ from tpumr_torch.mapred.task import Task
 from tpumr_torch.utils.reflection import new_instance
 
 
-def run_reduce_task(conf: Any, task: Task, map_outputs: Any,
+def run_reduce_task(conf: Any, task: Task, source: Any,
                     reporter: "Reporter | None" = None) -> None:
-    """Execute one reduce attempt over ``map_outputs`` into the attempt's
-    committer work dir. ``map_outputs`` is the (path, index) of every map
-    task's IFile in this process, or a source with
-    ``segments(partition)`` that fetches them from the node runners
-    (``shuffle_copier.RemoteSegmentSource``)."""
+    """Execute one reduce attempt over ``source.segments(task.partition)``
+    into the attempt's committer work dir."""
     reporter = reporter or Reporter()
     conf = localize_task_conf(conf, task)
     sk = conf.get_output_key_comparator().sort_key
-    fetch = getattr(map_outputs, "segments", None)
-    segments = (fetch(task.partition) if fetch is not None else
-                [ifile.read_partition(path, index, task.partition)
-                 for path, index in map_outputs])
-    merged = ifile.merge_sorted(segments, sk)
+    grouping = conf.get_output_value_grouping_comparator()
+    gk = grouping.sort_key if grouping is not None else sk
+    segments = list(source.segments(task.partition))
+    try:
+        engine = BoundedMerge(
+            segments, sk, conf.sort_factor,
+            run_dir=conf.get("tpumr.task.local.dir") or None,
+            reporter=reporter, prefix=f"reduce-p{task.partition}")
+        try:
+            _reduce_merged(conf, task, iter(engine), gk, reporter)
+        finally:
+            engine.close()
+    finally:
+        # whatever failed, reducer setup included, the segments are let go
+        for seg in segments:
+            close = getattr(seg, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:  # noqa: BLE001 — cleanup must not mask
+                    pass
 
+
+def _reduce_merged(conf: Any, task: Task,
+                   merged: Iterator[tuple[bytes, bytes]],
+                   gk: Callable[[bytes], Any], reporter: Reporter) -> None:
+    """Group ``merged`` by ``gk``, reduce and write; commit-ready output in
+    the attempt's work dir."""
     wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
+    conf.set("tpumr.task.work.dir", wd)   # before the reducer's configure
     reducer = new_instance(conf.get_reducer_class() or IdentityReducer, conf)
     writer = new_instance(conf.get_output_format(), conf).get_record_writer(
         conf, wd, task.partition)
@@ -56,7 +86,11 @@ def run_reduce_task(conf: Any, task: Task, map_outputs: Any,
     collector = OutputCollector(emit)
     ok = False
     try:
-        for key, values in group_by_key(merged, sk, reporter):
+        # inside the try: a raising begin_task still closes both
+        begin = getattr(reducer, "begin_task", None)
+        if begin is not None:
+            begin(collector, reporter)
+        for key, values in group_by_key(merged, gk, reporter):
             reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
                                   TaskCounter.REDUCE_INPUT_GROUPS)
             reducer.reduce(key, values, collector, reporter)
@@ -76,8 +110,9 @@ def run_reduce_task(conf: Any, task: Task, map_outputs: Any,
 def group_by_key(stream: Iterator[tuple[bytes, bytes]],
                  sort_key: Callable[[bytes], Any],
                  reporter: Reporter) -> Iterator[tuple[Any, Iterator[Any]]]:
-    """Group a sorted raw stream into (key, lazy values iterator) pairs.
-    The caller finishes each group before asking for the next."""
+    """Group a sorted raw stream into (key, lazy values iterator) pairs,
+    a group being a run of equal ``sort_key``; its key is the first
+    record's. The caller finishes each group before asking for the next."""
     it = iter(stream)
     try:
         first = next(it)

@@ -1,19 +1,24 @@
-"""Reduce-side shuffle fetch on a cluster: each map's partition segment,
-fetched from the node runner that serves it.
+"""Reduce-side segments: lazy views over local spill files, and each map's
+partition segment fetched from the node runner that serves it.
 
-Counterpart of ``tpumr/mapred/shuffle_copier.py``, trimmed to one
-sequential source. :class:`RemoteSegmentSource` polls the master's
-map-completion events (``JobMaster.get_map_completion_events``) by cursor
-until every map of the job has a live (not ``OBSOLETE``) event, takes each
-map's serving address from it, fetches the reduce's partition with the
-serving runner's ``get_map_output`` and parses the bytes
+Counterpart of ``tpumr/mapred/shuffle_copier.py``, trimmed to two
+sources. :class:`LocalSegmentSource` (``:231-247``) gives a reduce in the
+map's process one :class:`DiskSegment` per map over the map's own file
+(:func:`spill_region_segment`): nothing is read until the merge streams
+it, chunk by chunk, through the codec's decompressor.
+:class:`RemoteSegmentSource` polls the master's map-completion events
+(``JobMaster.get_map_completion_events``) by cursor until every map of the
+job has a live (not ``OBSOLETE``) event, takes each map's serving address
+from it, fetches the reduce's partition with the serving runner's
+``get_map_output`` and parses the bytes by the codec it names
 (``io/ifile.iter_transferred_segment``). ``reduce_task.run_reduce_task``
-merges the segments as it merges local files.
+merges either source's segments the same way.
 
-Left out (``ROADMAP.md``): the RAM-budgeted parallel copier, the merge
-manager and its disk spills, chunked and pipelined fetches, the batched
-fetch, fetch-failure reports and the penalty box. A segment that cannot
-be fetched fails the reduce attempt, which the master retries.
+Left out (``ROADMAP.md``): the RAM-budgeted parallel copier and its memory
+segments, the merge manager and its disk spills, chunked and pipelined
+fetches, the batched fetch, fetch-failure reports and the penalty box. A
+segment that cannot be fetched fails the reduce attempt, which the master
+retries.
 """
 
 from __future__ import annotations
@@ -23,6 +28,60 @@ from typing import Callable, Iterator
 
 from tpumr_torch.io import ifile
 from tpumr_torch.ipc.rpc import RpcClient
+
+
+class Segment:
+    """One map output's partition segment, iterable as (kbytes, vbytes)."""
+
+    #: raw (decompressed) bytes, which the merge's pass windows weigh
+    raw_length = 0
+
+    def __iter__(self) -> Iterator[tuple[bytes, bytes]]:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class DiskSegment(Segment):
+    """A segment's payload in a region of a local file, its records
+    streamed out in chunks through the codec's decompressor when the merge
+    reads them. The file stays its writer's: ``close`` leaves it."""
+
+    def __init__(self, path: str, codec: str, raw_length: int,
+                 offset: int, length: int) -> None:
+        self.path = path
+        self.codec = codec
+        self.raw_length = raw_length
+        self.offset = offset
+        self.length = length
+
+    def __iter__(self) -> Iterator[tuple[bytes, bytes]]:
+        return ifile.iter_chunked_segment(
+            ifile.file_region_chunks(self.path, self.offset, self.length),
+            self.codec)
+
+
+def spill_region_segment(path: str, index: dict,
+                         partition: int) -> DiskSegment:
+    """A segment over one partition of an existing spill file."""
+    off, raw_len, part_len = index["partitions"][partition]
+    # past the 4-byte length: the payload is part_len - 4 bytes
+    return DiskSegment(path, index.get("codec", "none"), raw_len,
+                       offset=off + 4, length=part_len - 4)
+
+
+class LocalSegmentSource:
+    """``segments(partition)`` over the (path, index) outputs of the maps
+    of this process, in map order; a map with no file (``""``) has no
+    segment."""
+
+    def __init__(self, map_outputs: "list[tuple[str, dict]]") -> None:
+        self._outputs = map_outputs
+
+    def segments(self, partition: int) -> "list[Segment]":
+        return [spill_region_segment(path, index, partition)
+                for path, index in self._outputs if path]
 
 
 class TaskKilledError(RuntimeError):

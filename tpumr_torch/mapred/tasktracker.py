@@ -27,7 +27,9 @@ Counterpart of ``NodeRunner`` in ``tpumr/mapred/tasktracker.py``:
   master's ``can_commit``. An exception fails the attempt, and its type,
   message and traceback reach the master as the status's diagnostics;
 - :meth:`NodeRunner.get_map_output` (``:2139-2162``): one partition's bytes
-  of a map's IFile, served over RPC.
+  of a map's IFile, served over RPC with the codec of the map output, by
+  which the reduce decodes them; a reduce's merge runs go under
+  ``tpumr.task.local.dir``, the job's ``shuffle`` directory (``:1364``).
 
 The node decides its device: ``tpumr_torch.device`` of the runner's conf,
 ``cuda`` by default, is set on every job conf it runs, so a job cannot move
@@ -275,6 +277,10 @@ class NodeRunner:
             for k, v in self.master.call("get_job_conf", job_id).items():
                 jc.set(k, v)
             jc.set(DEVICE_KEY, self.device_key)   # the node's device
+            # a reduce's merge runs, inside the job's scratch tree so that
+            # the job's cleanup removes any left behind
+            jc.set("tpumr.task.local.dir",
+                   os.path.join(self.local_root, job_id, "shuffle"))
             with self.lock:
                 jc = self.job_confs.setdefault(job_id, jc)
         return jc
