@@ -137,9 +137,13 @@ ONEHOT_SHAPES = ("job2", "job3")
 #: memory (kmeans.assign_plan), a ragged last chunk of d and a ragged tile
 STREAMED_SHAPE = ("streamed", 20_003, 200, 70)
 #: ... and of kmeans_assign_partials: the main path's split, a ragged one,
-#: exact ties, and the edge of its range (d = 32, k = 64)
+#: exact ties, the edge of its range (d = 32, k = 64), and the main split's
+#: shape with every coordinate 1000 + N(0, 1) (OFFSET): long one-signed
+#: sums, where an accumulation that truncates would show
 FUSED_SHAPES = [("main", ROWS_PER_SPLIT, D, K), ("ragged", 1_000_003, 5, 7),
-                ("ties", 1_000_000, 16, 16), ("fused_edge", 1_000_003, 32, 64)]
+                ("ties", 1_000_000, 16, 16), ("fused_edge", 1_000_003, 32, 64),
+                ("offset", ROWS_PER_SPLIT, D, K)]
+OFFSET = 1000.0
 #: committed centroids against the float64 oracle. rtol 1e-4 as the JAX
 #: package's tests hold f32 partial sums; atol 1e-5 because a near-tie
 #: point the kernel and the oracle assign differently moves a mean by
@@ -277,8 +281,11 @@ def check_ids(label: str, cmp: dict) -> None:
 def make_inputs(label: str, n: int, d: int, k: int, gen):
     """Points and centroids of a kernel-phase shape, and for ``ties`` the
     distinct centroids (every centroid twice: each point's best distance is
-    an exact tie, which must go to the lower copy)."""
+    an exact tie, which must go to the lower copy). ``offset`` moves every
+    point by OFFSET in every dimension; its centroids stay N(0, 1)."""
     x = torch.randn(n, d, device="cuda", generator=gen)
+    if label == "offset":
+        x += OFFSET
     if label == "ties":
         distinct = torch.randn(k // 2, d, device="cuda", generator=gen)
         return x, torch.cat([distinct, distinct]).contiguous(), distinct
@@ -339,16 +346,28 @@ def kernel_phase(km) -> dict:
 
 
 def fused_phase(km) -> dict:
-    """kmeans_assign_partials against assign_and_partials_plain at the main
-    path's split shape, a ragged shape, a shape with exact ties and the
-    edge of its range (d = 32, k = 64). Ids by the near-tie rules; counts
-    equal to the bincount of the kernel's own ids; sums within SUMS_RTOL of
-    a float64 sum over those ids; two launches bitwise equal. Times the
+    """kmeans_assign_partials against assign_and_partials_plain at every
+    shape of FUSED_SHAPES. Ids by the near-tie rules; counts equal to the
+    bincount of the kernel's own ids; sums within SUMS_RTOL of a float64
+    sum over those ids; two launches bitwise equal; the plan it launched
+    (kmeans.fused_plan) no more blocks an SM than the card holds. Times the
     kernel, the unfused route (kmeans_assign and the one-hot partials) and the
     plain version."""
+    import ctypes
+
+    from tpumr_torch.ops import native
     gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for label, n, d, k in FUSED_SHAPES:
+        plan = km.fused_plan(n, d, k, sms)
+        per_sm = ctypes.c_int(0)
+        rc = native.load().kmeans_assign_partials_occupancy(
+            d, k, 0, ctypes.byref(per_sm))
+        check(rc == 0 and per_sm.value >= plan.blocks_per_sm,
+              f"kmeans_assign_partials {label}: the card holds "
+              f"{per_sm.value} blocks an SM (cudaError {rc}), the plan "
+              f"{plan.blocks_per_sm}")
         x, c, distinct = make_inputs(label, n, d, k, gen)
         ids, sums, counts = km.kmeans_assign_partials(x, c)
         ids2, sums2, counts2 = km.kmeans_assign_partials(x, c)
@@ -378,6 +397,11 @@ def fused_phase(km) -> dict:
         bound, bound_by = fused_bound_ms(n, d, k)
         row = {"shape": [n, d, k], **cmp,
                "sums_max_abs_err": float(sums_err.max()),
+               "sums_max_rel_err": float((sums_err / scale.clamp_min(1e-30))
+                                         .max()),
+               "plan": {"dp": plan.dp, "tile": plan.tile,
+                        "blocks_per_sm": plan.blocks_per_sm,
+                        "grid": plan.grid, "occupancy": per_sm.value},
                "kernel_ms": time_ms(lambda: km.kmeans_assign_partials(x, c)),
                "unfused_route_ms": time_ms(lambda: km.onehot_partials(
                    x, km.kmeans_assign(x, c), k)),
@@ -2145,11 +2169,12 @@ def profile_host(work: str) -> None:
     log("host_profile " + json.dumps(stages))
 
 
-def log_registers(build_log: str) -> None:
+def log_registers(build_log: str) -> dict:
     """One line per compiled kernel from ptxas's report: its (mangled)
-    name, registers and spills."""
+    name, registers and spills. Returns each name's spill line."""
     import re
     name = spill = None
+    spills = {}
     with open(build_log) as f:
         for line in f:
             m = re.search(r"Function properties for (\S+)", line)
@@ -2161,7 +2186,19 @@ def log_registers(build_log: str) -> None:
                 used = re.search(r"Used \d+ registers", line)
                 log(f"nvcc {name}: {used.group(0) if used else line.strip()}"
                     f", {spill}")
+                spills[name] = spill
                 name = None
+    return spills
+
+
+def check_no_spills(spills: dict, instance: str) -> None:
+    """Every compiled kernel whose mangled name holds ``instance`` (the
+    fused kernel's instance for the main path's rows) spills no byte."""
+    found = {name: line for name, line in spills.items() if instance in name}
+    check(bool(found), f"ptxas reported no kernel named like {instance}")
+    for name, line in found.items():
+        check(line is not None and "0 bytes spill stores, 0 bytes spill "
+              "loads" in line, f"{name} spills: {line}")
 
 
 def main() -> None:
@@ -2194,7 +2231,8 @@ def main() -> None:
     from tpumr_torch.ops import native
     log(f"kernel build: {native.build():.3f}s ("
         + ", ".join(os.path.basename(src) for src in native.SOURCES) + ")")
-    log_registers(native.BUILD_LOG)
+    check_no_spills(log_registers(native.BUILD_LOG),
+                    f"assign_partials_kernelILi{D}ELb1E")
 
     shapes = kernel_phase(km)
     fused = fused_phase(km)

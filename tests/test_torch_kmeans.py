@@ -277,6 +277,92 @@ def test_assign_plan_depends_on_the_shape_and_the_card_alone():
         tk.assign_plan(0, 4, 4, 132)
 
 
+#: (n, d, k) of chip_smoke.py's kmeans_assign_partials shapes, the corners
+#: of its range, and counts of points around a tile and past 2**31 / 512
+_FUSED_PLAN_SHAPES = [(4_000_000, 16, 16), (1_000_003, 5, 7),
+                      (1_000_000, 16, 16), (1_000_003, 32, 64), (1, 1, 1),
+                      (1_023, 4, 64), (1_025, 8, 1), (513, 9, 33),
+                      (300, 32, 64), (200_000_000, 16, 16),
+                      (2 ** 31 - 1, 32, 64)]
+
+
+@pytest.mark.parametrize("sms", [1, 132, 264])
+@pytest.mark.parametrize("n,d,k", _FUSED_PLAN_SHAPES)
+def test_fused_plan_covers_every_tile_with_bounded_walks(n, d, k, sms):
+    """kmeans_assign_partials' plan: the same for the same (n, d, k,
+    sm_count); the instance of the narrowest width that holds d; never more
+    blocks than tiles; blocks b walking tiles b, b + grid, ... meet every
+    tile exactly once, and none walks more than FUSED_MAX_TILES_PER_BLOCK;
+    its shared memory fits a block, and blocks_per_sm blocks fit an SM."""
+    plan = tk.fused_plan(n, d, k, sms)
+    assert plan == tk.fused_plan(n, d, k, sms)
+    assert plan.dp == min(w for w in (4, 8, 16, 32) if w >= d)
+    assert plan.tile == tk.FUSED_TILE
+    tiles = -(-n // plan.tile)
+    assert 1 <= plan.grid <= tiles
+    walk = -(-tiles // plan.grid)
+    assert walk <= tk.FUSED_MAX_TILES_PER_BLOCK
+    if tiles <= 1 << 20:
+        seen = np.arange(plan.grid)[:, None] + \
+            plan.grid * np.arange(walk)[None, :]
+        seen = np.sort(seen[seen < tiles])
+        np.testing.assert_array_equal(seen, np.arange(tiles))
+    assert plan.smem == tk.fused_smem(plan.dp, k) <= tk.SMEM_PER_BLOCK
+    assert 1 <= plan.blocks_per_sm <= tk.FUSED_MIN_BLOCKS[plan.dp]
+    assert plan.blocks_per_sm * (plan.smem + tk.SMEM_RESERVED) <= \
+        tk.SMEM_PER_SM
+    assert plan.grid == min(tiles, max(plan.blocks_per_sm * sms,
+                                       -(-tiles // 32)))
+
+
+def test_fused_plan_depends_on_the_shape_and_the_card_alone():
+    """The plan takes (n, d, k, sm_count) and nothing else. At the main
+    path's split on 132 SMs: two blocks of 512-point tiles an SM (16
+    assigning warps), 264 blocks. More SMs give more blocks; at d = 16 a k
+    past 32 and at d = 32 any k leave room for one block an SM."""
+    import inspect
+    assert list(inspect.signature(tk.fused_plan).parameters) == \
+        ["n", "d", "k", "sm_count"]
+    main = tk.fused_plan(4_000_000, 16, 16, 132)
+    assert main == tk.FusedPlan(dp=16, tile=512, blocks_per_sm=2,
+                                smem=main.smem, grid=264)
+    assert tk.fused_plan(4_000_000, 16, 16, 264).grid == 528
+    assert tk.fused_plan(4_000_000, 16, 64, 132).blocks_per_sm == 1
+    assert tk.fused_plan(1_000_003, 32, 64, 132).blocks_per_sm == 1
+    # few points: one block a tile
+    assert tk.fused_plan(1_000, 16, 16, 132).grid == 2
+    for bad in [(0, 16, 16), (10, 0, 16), (10, 33, 16), (10, 16, 0),
+                (10, 16, 65)]:
+        with pytest.raises(ValueError):
+            tk.fused_plan(*bad, 132)
+    with pytest.raises(ValueError):
+        tk.fused_plan(10, 16, 16, 0)
+
+
+def test_fused_plan_is_computed_once_per_device_and_shape(monkeypatch):
+    """The wrapper's plan is fused_plan on the device's SM count, cached per
+    (device, n, d, k): a second launch of the same shape asks nothing of
+    the card."""
+    asked = []
+
+    def sm_count(device):
+        asked.append(device)
+        return {0: 132, 1: 66}[device.index]
+
+    monkeypatch.setattr(tk, "_sm_count", sm_count)
+    tk._fused_plan_on.cache_clear()
+    try:
+        dev0, dev1 = torch.device("cuda", 0), torch.device("cuda", 1)
+        plan = tk._fused_plan_on(dev0, 4_000_000, 16, 16)
+        assert plan == tk.fused_plan(4_000_000, 16, 16, 132)
+        assert tk._fused_plan_on(dev0, 4_000_000, 16, 16) is plan
+        assert tk._fused_plan_on(dev1, 4_000_000, 16, 16) == \
+            tk.fused_plan(4_000_000, 16, 16, 66)
+        assert asked == [dev0, dev1]
+    finally:
+        tk._fused_plan_on.cache_clear()
+
+
 def test_assign_and_partials_on_cpu_takes_the_plain_version():
     """Out of the fused range too, a CPU tensor takes the plain version:
     the same results, no launch counted."""

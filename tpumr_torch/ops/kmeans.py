@@ -25,7 +25,6 @@ maps upload none (:func:`centroids_from_numpy` counts the uploads).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Any, Iterable, NamedTuple
 
@@ -168,6 +167,75 @@ assign = kmeans_assign
 FUSED_MAX_D = 32
 #: ... and at most this many centroids
 FUSED_MAX_K = 64
+#: threads (8 warps) of a block of the fused kernel, and points of a tile
+#: (2 a thread)
+FUSED_THREADS, FUSED_TILE = 256, 512
+#: per row width DP (the kernel's instance): tiles in a block's ring (one
+#: in flight, one assigned, one summed; 2 where rows of 32 floats leave no
+#: room for 3) ...
+FUSED_STAGES = {4: 3, 8: 3, 16: 3, 32: 2}
+#: ... the threads that sum, G sub-tiles by DP dimensions (half the block at
+#: DP = 16, so that two blocks fit an SM) ...
+FUSED_SUM_THREADS = {4: 256, 8: 256, 16: 128, 32: 256}
+#: ... and the blocks an SM must hold (``__launch_bounds__``: registers
+#: allow that many); 16 assigning warps an SM where shared memory allows
+FUSED_MIN_BLOCKS = {4: 2, 8: 2, 16: 2, 32: 1}
+#: a block walks at most this many tiles (an accumulator takes at most
+#: FUSED_TILE / G points a tile in a row)
+FUSED_MAX_TILES_PER_BLOCK = 32
+#: shared memory of an SM and of one block on sm_90, in bytes, and what the
+#: card reserves for each resident block
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233_472, 232_448, 1_024
+
+
+class FusedPlan(NamedTuple):
+    """How :func:`kmeans_assign_partials` launches for one shape on one
+    card."""
+    dp: int              #: the instance's row width (d padded to 4, 8, 16, 32)
+    tile: int            #: points a tile
+    blocks_per_sm: int   #: blocks resident on an SM
+    smem: int            #: bytes of shared memory a block takes
+    grid: int            #: blocks, the partials' second dimension
+
+
+def fused_smem(dp: int, k: int) -> int:
+    """Bytes of shared memory of a fused block (``smem_floats`` in the
+    kernel): the ring, the accumulators [k][G][dp], two tiles of ids, the
+    padded centroids, their norms and each warp's counts."""
+    g = FUSED_SUM_THREADS[dp] // dp
+    warps = FUSED_THREADS // 32
+    return 4 * (FUSED_STAGES[dp] * FUSED_TILE * dp + k * g * dp
+                + 2 * FUSED_TILE + k * dp + k + warps * k)
+
+
+def fused_plan(n: int, d: int, k: int, sm_count: int) -> FusedPlan:
+    """The launch of :func:`kmeans_assign_partials` for n points of width
+    d, k centroids and a card of ``sm_count`` SMs. It depends on these
+    alone, so the partials, and the sums, repeat bit for bit from launch to
+    launch. As many blocks as the card holds at once (up to the instance's
+    ``FUSED_MIN_BLOCKS`` an SM), more only so that none walks more than
+    ``FUSED_MAX_TILES_PER_BLOCK`` tiles, and never more than there are
+    tiles. The kernel refuses any other plan."""
+    if min(n, d, k, sm_count) < 1 or d > FUSED_MAX_D or k > FUSED_MAX_K:
+        raise ValueError(f"fused_plan takes n, sm_count >= 1, 1 <= d <= "
+                         f"{FUSED_MAX_D} and 1 <= k <= {FUSED_MAX_K}, got "
+                         f"{n}, {d}, {k}, {sm_count}")
+    dp = min(w for w in FUSED_STAGES if w >= d)
+    tile = FUSED_TILE
+    smem = fused_smem(dp, k)
+    per_sm = min(FUSED_MIN_BLOCKS[dp], SMEM_PER_SM // (smem + SMEM_RESERVED))
+    tiles = -(-n // tile)
+    grid = min(tiles, max(per_sm * sm_count,
+                          -(-tiles // FUSED_MAX_TILES_PER_BLOCK)))
+    return FusedPlan(dp, tile, per_sm, smem, grid)
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_plan_on(device: torch.device, n: int, d: int, k: int
+                   ) -> FusedPlan:
+    """:func:`fused_plan` on ``device``, computed once per (device, n, d,
+    k)."""
+    return fused_plan(n, d, k, _sm_count(device))
 
 
 def onehot_partials(points: torch.Tensor, a: torch.Tensor, k: int
@@ -224,27 +292,28 @@ def kmeans_assign_partials(points: torch.Tensor, centroids: torch.Tensor
                          f"got {n}")
     dev = points.device
     ids = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = torch.empty(k, d, dtype=torch.float32, device=dev)
-    counts = torch.empty(k, dtype=torch.int32, device=dev)
     if n == 0:
-        return ids, sums.zero_(), counts.zero_()
+        return (ids, torch.zeros(k, d, dtype=torch.float32, device=dev),
+                torch.zeros(k, dtype=torch.int32, device=dev))
     lib = native.load()
-    with torch.cuda.device(dev):
-        # the grid, and so the partials' second dimension, is fixed by the
-        # shape and the card: the sums repeat bit for bit
-        blocks = ctypes.c_int(0)
-        rc = lib.kmeans_assign_partials_blocks(n, d, k, ctypes.byref(blocks))
-        if rc != 0:
-            raise RuntimeError(f"kmeans_assign_partials grid: cudaError {rc}")
-        part_sums = torch.empty(k * d, blocks.value, dtype=torch.float32,
-                                device=dev)
-        part_counts = torch.empty(k, blocks.value, dtype=torch.int32,
-                                  device=dev)
-        rc = lib.kmeans_assign_partials(
-            points.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
-            part_sums.data_ptr(), part_counts.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), n, d, k, blocks.value,
-            torch.cuda.current_stream().cuda_stream)
+    # the grid, and so the partials' second dimension, is fixed by the shape
+    # and the card: the sums repeat bit for bit
+    plan = _fused_plan_on(dev, n, d, k)
+    # one allocation: the sums, the counts (int32 in f32's place), then the
+    # partials the kernel sums them from
+    out = torch.empty((k * d + k) * (1 + plan.grid), dtype=torch.float32,
+                      device=dev)
+    sums = out[:k * d].view(k, d)
+    counts = out[k * d:k * d + k].view(torch.int32)
+    args = (points.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
+            out.data_ptr() + 4 * (k * d + k), sums.data_ptr(),
+            counts.data_ptr(), n, d, k, plan.tile, plan.grid, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if torch.cuda.current_device() == dev.index:
+        rc = lib.kmeans_assign_partials(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.kmeans_assign_partials(*args)
     if rc != 0:
         raise RuntimeError(f"kmeans_assign_partials launch failed: "
                            f"cudaError {rc}")

@@ -79,9 +79,11 @@ def load() -> ctypes.CDLL:
 
     - ``kmeans_assign(points, centroids, c2, part_d2, part_j, out, n, d,
       k, bn, splits, resident, stream)``;
-    - ``kmeans_assign_partials_blocks(n, d, k, &blocks)``;
-    - ``kmeans_assign_partials(points, centroids, ids, part_sums,
-      part_counts, sums, counts, n, d, k, blocks, stream)``.
+    - ``kmeans_assign_partials(points, centroids, ids, partials, sums,
+      counts, n, d, k, tile, blocks, device, stream)``, launched as
+      ``kmeans.fused_plan`` says;
+    - ``kmeans_assign_partials_occupancy(d, k, device, &per_sm)``, what a
+      plan's ``blocks_per_sm`` is held against.
     """
     global _lib
     with _lock:
@@ -92,11 +94,11 @@ def load() -> ctypes.CDLL:
             lib.kmeans_assign.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                           i, p]
             lib.kmeans_assign.restype = ctypes.c_int
-            lib.kmeans_assign_partials_blocks.argtypes = [
-                i, i, i, ctypes.POINTER(ctypes.c_int)]
-            lib.kmeans_assign_partials_blocks.restype = ctypes.c_int
-            lib.kmeans_assign_partials.argtypes = [p, p, p, p, p, p, p,
+            lib.kmeans_assign_partials.argtypes = [p, p, p, p, p, p, i, i,
                                                    i, i, i, i, p]
             lib.kmeans_assign_partials.restype = ctypes.c_int
+            lib.kmeans_assign_partials_occupancy.argtypes = [
+                i, i, i, ctypes.POINTER(ctypes.c_int)]
+            lib.kmeans_assign_partials_occupancy.restype = ctypes.c_int
             _lib = lib
         return _lib
