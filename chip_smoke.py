@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (tpumr_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--points N] [--hybrid-points N] [--tera-rows N]
-                          [--profile]
+                          [--pipeline-tera-rows N] [--profile]
 
 Builds the port's CUDA kernels from tpumr_torch/csrc (one nvcc call) and
 holds each against its plain torch version on the card:
@@ -40,10 +40,29 @@ launching kmeans_assign_partials once per GPU map and kmeans_assign never,
 and committing the centroids of a float64 Lloyd step; kmeans_round2's
 acceleration factor (mean CPU map seconds over mean GPU map seconds) must
 exceed 1; then a 4,096^2 f32 matmul in 4 maps to SequenceFiles against a
-float64 product. Matmul: the map-only blocked product of
-two 4,096 x 4,096 f32 matrices (4 maps) in f32 and in bf16 with f32 output,
-each against a float64 product, and a chain job D = C @ B that reads C from
-the card (0 bytes staged). Text: bench.py's pi job (8 maps of 50,000,000
+float64 product. Pipeline: the pipeline engine on the hybrid phase's points
+(written again), on a MiniMRCluster of one GPU slot and no CPU slot: ten
+K-Means rounds as one PipelineClient submission (a loop node whose
+predicate never holds, versioned centroid files, KMeansCentroidUpdateReducer)
+against ten JobClient submissions with the centroid caches cleared before
+each (bench.py:262-381's pair): byte-identical final centroids,
+kmeans_assign_partials 80 times on each side and kmeans_assign never, every
+map on its first attempt, bytes staged in round 0 only, round 0 against a
+float64 Lloyd step, and a loop from round 10's centroids that its predicate
+settles after one round; one pipeline line with each side's seconds and
+per-round overhead. Then python -m tpumr_torch.cli jobtracker and
+tasktracker (one GPU slot) in processes of their own: examples kmeans and
+pipeline submit -wait sent there with -jt, each equal to round 3's
+centroids, job -list naming their 6 jobs, both daemons exiting 0 on
+SIGTERM. Then TeraSort's chain (teragen, sort with the partition sampling
+in the master's hook, validate) as one pipeline at 1,000,000 records on a
+cluster of CPU slots, with a dfs and with a stream edge into validate: the
+same sorted records, the input's count and checksum, an empty validate
+output, and both validate splits streamed. Matmul: the map-only blocked
+product of two 4,096 x 4,096 f32 matrices (4 maps) in f32 and in bf16 with
+f32 output, each against a float64 product, and a chain job D = C @ B that
+reads C from the card (0 bytes staged).
+Text: bench.py's pi job (8 maps of 50,000,000
 samples, NLineInputFormat, one map per line) with its sampling and counting
 on the card, cold then warm (total exact, the estimate within 6 sigma of pi,
 one fetch per map, the same count bit for bit on the second run), the same
@@ -92,6 +111,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -183,6 +203,14 @@ GREP_PATTERN = "word00[0-9]{2}"
 HYB_SEED, HYB_N, HYB_ROWS, HYB_CHUNK = 4, 32_000_000, 4_000_000, 2_000_000
 HYB_MM_N = 4096
 HYB_JOB_TIMEOUT_S = 120
+#: the pipeline phase: the K-Means loop's rounds (bench.py:262-381's 10)
+#: and the daemons' rounds (the rounds phase's CLI_ITERATIONS); TeraSort's
+#: chain at PIPE_TERA_ROWS records (tests/test_pipeline.py's chain, grown
+#: to the size of the terasort phase's CLI run), teragen maps and sort
+#: reduces; seconds a pipeline may take
+PIPE_ROUNDS, PIPE_CLI_ROUNDS = 10, 3
+PIPE_TERA_ROWS, PIPE_TERA_MAPS, PIPE_TERA_REDUCES = 1_000_000, 4, 2
+PIPE_TIMEOUT_S = 600
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W), FLOP/s
 PEAK_BF16_FLOP_PER_S = 989e12
 #: the fused kernel's sums against a float64 sum over its own ids: within
@@ -1093,6 +1121,431 @@ def hybrid_phase(km, n: int) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def pipe_round_conf(work: str, prefix: str) -> dict:
+    """The pipeline phase's K-Means round, templated by round: the hybrid
+    phase's points and splits on the GPU slot, the centroids in from
+    {prefix}cents-r{round}.npy and out to {prefix}cents-r{next_round}.npy
+    (bench.py:290-305's round conf), the split cache large enough for all
+    8 splits."""
+    return {
+        "mapred.input.dir": f"file://{work}/points.npy",
+        "mapred.output.dir": f"file://{work}/{prefix}out-r{{round}}",
+        "mapred.input.format.class":
+            "tpumr_torch.mapred.input_formats.DenseInputFormat",
+        "tpumr.dense.split.rows": HYB_ROWS,
+        "tpumr.map.kernel": "kmeans-assign",
+        "mapred.reducer.class":
+            "tpumr_torch.ops.kmeans.KMeansCentroidUpdateReducer",
+        "mapred.reduce.tasks": 1,
+        "tpumr.kmeans.centroids":
+            f"file://{work}/{prefix}cents-r{{round}}.npy",
+        "tpumr.kmeans.centroids.out":
+            f"file://{work}/{prefix}cents-r{{next_round}}.npy",
+        "tpumr.tpu.split.cache.mb": 8192,
+    }
+
+
+def stage_rows(master, job_ids: list) -> list:
+    """Per stage job: its seconds on the master (submission to its last
+    task), the bytes its maps staged (0 where every split was a split-cache
+    hit), its GPU maps, and whether every map succeeded on its first
+    attempt."""
+    from tpumr_torch.core.counters import BackendCounter
+    rows = []
+    for j in job_ids:
+        jip = master.jobs[j]
+        reports = master.get_task_reports(j, "map")
+        rows.append({
+            "job": j, "exec_s": jip.finish_time - jip.start_time,
+            "bytes_staged": jip.counters.value(
+                BackendCounter.GROUP, BackendCounter.TPU_DEVICE_BYTES_STAGED),
+            "gpu_maps": jip.finished_tpu_maps,
+            "first_attempts": all(r["successful_attempt"].endswith("_0")
+                                  for r in reports)})
+    return rows
+
+
+def pipeline_loop(c, work: str, n: int, km) -> dict:
+    """(a): PIPE_ROUNDS rounds as one PipelineClient submission (a loop
+    node whose predicate never holds) against PIPE_ROUNDS JobClient
+    submissions on the same cluster with the centroid caches cleared
+    before each (bench.py:262-381's pair), each side from a cold split
+    cache; then a loop from the last
+    round's centroids that its predicate settles after one round."""
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.job_client import JobClient
+    from tpumr_torch.pipeline import JobGraph, PipelineClient
+    from tpumr_torch.pipeline.graph import expand_round
+    n_maps = -(-n // HYB_ROWS)
+    never = {"group": km.SHIFT_COUNTER_GROUP, "counter": km.SHIFT_COUNTER,
+             "op": "lt", "value": 0}
+    master = c.master
+    client = PipelineClient(c.create_job_conf())
+    try:
+        zero_launch_counts(km)
+        t = time.monotonic()
+        st = client.submit(JobGraph("kmeans-loop").loop(
+            "km", pipe_round_conf(work, "pipe-"), max_rounds=PIPE_ROUNDS,
+            converge=never)).wait_for_completion(
+                poll_s=0.05, timeout=PIPE_TIMEOUT_S)
+        pipe_s = time.monotonic() - t
+        pipe_launches = launch_counts(km)
+    finally:
+        client.close()
+    check(st["state"] == "SUCCEEDED", f"pipeline kmeans loop: {st}")
+    node = st["nodes"]["km"]
+    check(node["rounds_run"] == PIPE_ROUNDS,
+          f"pipeline kmeans loop ran {node['rounds_run']} rounds")
+    pipe = stage_rows(master, node["jobs"])
+
+    # both sides start cold: the sequential side's round 0 stages the
+    # points again, as the pipelined side's did
+    gpu_runner.clear_split_caches()
+    zero_launch_counts(km)
+    seq_jobs = []
+    t = time.monotonic()
+    for r in range(PIPE_ROUNDS):
+        km.clear_centroid_cache()
+        conf = c.create_job_conf()
+        for key, value in expand_round(pipe_round_conf(work, "seq-"),
+                                       r).items():
+            conf.set(key, value)
+        jc = JobClient(conf)
+        try:
+            running = jc.submit_job(conf)
+            sst = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+        finally:
+            jc.close()
+        check(sst["state"] == "SUCCEEDED", f"sequential round {r}: {sst}")
+        seq_jobs.append(running.job_id)
+    seq_s = time.monotonic() - t
+    seq_launches = launch_counts(km)
+    seq = stage_rows(master, seq_jobs)
+
+    finals = []
+    for prefix in ("pipe-", "seq-"):
+        with open(os.path.join(work, f"{prefix}cents-r{PIPE_ROUNDS}.npy"),
+                  "rb") as f:
+            finals.append(f.read())
+    check(finals[0] == finals[1], "the pipelined rounds' final centroids "
+          "differ from the sequential rounds'")
+    want = {"kmeans_assign_partials": PIPE_ROUNDS * n_maps,
+            "kmeans_assign": 0}
+    check(pipe_launches == want and seq_launches == want,
+          f"pipeline launches {pipe_launches}, sequential {seq_launches}, "
+          f"expected {want} each")
+    for label, rows in (("pipelined", pipe), ("sequential", seq)):
+        check(all(r["first_attempts"] for r in rows),
+              f"{label} rounds: a map succeeded only after a failed attempt")
+        check(all(r["gpu_maps"] == n_maps for r in rows),
+              f"{label} rounds: GPU maps {[r['gpu_maps'] for r in rows]}")
+    staged = [r["bytes_staged"] for r in pipe]
+    seq_staged = [r["bytes_staged"] for r in seq]
+    for label, got in (("pipelined", staged), ("sequential", seq_staged)):
+        check(got[0] > 0 and not any(got[1:]),
+              f"{label} rounds staged {got} bytes")
+    cents0 = np.load(os.path.join(work, "pipe-cents-r0.npy"))
+    ref = oracle(work, n, cents0, km, compare=False)["centroids"]
+    err = np.abs(np.load(os.path.join(work, "pipe-cents-r1.npy")) - ref)
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL * np.abs(ref))),
+          f"pipelined round 0: centroids off a float64 Lloyd step by up to "
+          f"{err.max():.3g}")
+
+    # settling: a loop from round PIPE_ROUNDS's centroids, whose predicate
+    # (le, just above the float64 step's shift) holds after its one round
+    last = np.load(os.path.join(work, f"pipe-cents-r{PIPE_ROUNDS}.npy"))
+    np.save(os.path.join(work, "conv-cents-r0.npy"), last)
+    step = oracle(work, n, last, km, compare=False)["centroids"]
+    shift = int(round(float(np.abs(step - last).sum()) * 1000))
+    threshold = shift + max(2, shift // 100)
+    client = PipelineClient(c.create_job_conf())
+    try:
+        zero_launch_counts(km)
+        cst = client.submit(JobGraph("kmeans-settle").loop(
+            "km", pipe_round_conf(work, "conv-"), max_rounds=5,
+            converge=dict(never, op="le", value=threshold))
+        ).wait_for_completion(poll_s=0.05, timeout=PIPE_TIMEOUT_S)
+        conv_launches = launch_counts(km)
+    finally:
+        client.close()
+    check(cst["state"] == "SUCCEEDED" and cst["nodes"]["km"]["rounds_run"]
+          == 1, f"the settling loop: {cst['state']}, "
+          f"{cst['nodes']['km']['rounds_run']} rounds")
+    got_shift = master.jobs[cst["nodes"]["km"]["job_id"]].counters.value(
+        km.SHIFT_COUNTER_GROUP, km.SHIFT_COUNTER)
+    check(got_shift <= threshold, f"the settling round's shift {got_shift} "
+          f"above its threshold {threshold}")
+
+    pipe_exec = sum(r["exec_s"] for r in pipe)
+    seq_exec = sum(r["exec_s"] for r in seq)
+    row = {"rounds": PIPE_ROUNDS, "maps_per_round": n_maps,
+           "seq_s": seq_s, "pipe_s": pipe_s,
+           "seq_exec_s": seq_exec, "pipe_exec_s": pipe_exec,
+           "seq_overhead_per_round_s": (seq_s - seq_exec) / PIPE_ROUNDS,
+           "pipe_overhead_per_round_s": (pipe_s - pipe_exec) / PIPE_ROUNDS,
+           "pipe_round_s": [r["exec_s"] for r in pipe],
+           "seq_round_s": [r["exec_s"] for r in seq],
+           "pipe_bytes_staged": staged,
+           "seq_bytes_staged": seq_staged,
+           "launches": {"pipelined": pipe_launches,
+                        "sequential": seq_launches,
+                        "settling": conv_launches},
+           "round0_max_abs_err": float(err.max()),
+           "settle_shift_milli": got_shift, "settle_threshold": threshold}
+    log("pipeline " + json.dumps(row))
+    return row
+
+
+def wait_for_line(path: str, prefix: str, proc, timeout: float) -> str:
+    """The first line of a daemon's log that contains ``prefix``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(path) as f:
+            for line in f:
+                if prefix in line:
+                    return line.strip()
+        check(proc.poll() is None, f"daemon exited {proc.returncode}: "
+              + open(path).read()[-2000:])
+        time.sleep(0.1)
+    fail(f"no {prefix!r} from a daemon within {timeout}s")
+
+
+def pipeline_cli(work: str, km) -> dict:
+    """(b): python -m tpumr_torch.cli jobtracker and tasktracker (one GPU
+    slot, no CPU slot), each a process of its own; examples kmeans sent to
+    them with -jt, and pipeline submit -wait of a 3-round loop node, both
+    equal to (a)'s round-3 centroids; job -list naming the 6 jobs; both
+    daemons exit 0 on SIGTERM."""
+    from tpumr_torch.pipeline import JobGraph
+    repo = os.path.dirname(os.path.abspath(__file__))
+    py = [sys.executable, "-m", "tpumr_torch.cli"]
+    procs, logs, secs = [], [], {}
+
+    def run(label: str, args: list, timeout: float = 600) -> str:
+        t = time.monotonic()
+        proc = subprocess.run(py + args, cwd=repo, capture_output=True,
+                              text=True, timeout=timeout)
+        secs[label] = time.monotonic() - t
+        check(proc.returncode == 0, f"cli {label} exited {proc.returncode}:"
+              f" {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    def daemon(label: str, args: list):
+        path = os.path.join(work, f"{label}.log")
+        with open(path, "wb") as f:
+            procs.append(subprocess.Popen(py + args, cwd=repo, stderr=f,
+                                          stdout=subprocess.DEVNULL))
+        logs.append(path)
+        return procs[-1], path
+
+    t_all = time.monotonic()
+    try:
+        jt, jt_log = daemon("jobtracker", ["jobtracker", "-port", "0"])
+        addr = wait_for_line(jt_log, "JobMaster up at", jt, 120).split()[-1]
+        tt, tt_log = daemon("tasktracker", [
+            "-jt", addr, "-D", "mapred.tasktracker.map.tpu.tasks.maximum=1",
+            "-D", "mapred.tasktracker.map.cpu.tasks.maximum=0",
+            "-D", "tpumr.heartbeat.interval.ms=50", "tasktracker"])
+        wait_for_line(tt_log, "NodeRunner up", tt, 120)
+        secs["daemons_up"] = time.monotonic() - t_all
+        jt_args = ["-jt", addr, "-D", "tpumr.tpu.split.cache.mb=8192"]
+        run("examples_kmeans", jt_args + [
+            "examples", "kmeans", f"file://{work}/points.npy",
+            f"file://{work}/cli-out", "-k", str(K), "-i",
+            str(PIPE_CLI_ROUNDS), "--split-rows", str(HYB_ROWS)])
+        np.save(os.path.join(work, "cli-cents-r0.npy"),
+                np.load(os.path.join(work, "pipe-cents-r0.npy")))
+        graph = os.path.join(work, "graph.json")
+        with open(graph, "w") as f:
+            json.dump(JobGraph("cli-loop").loop(
+                "km", pipe_round_conf(work, "cli-"),
+                max_rounds=PIPE_CLI_ROUNDS).to_dict(), f)
+        out = run("pipeline_submit", ["-jt", addr, "pipeline", "submit",
+                                      graph, "-wait"])
+        check(json.loads(out.split("\n", 1)[1])["state"] == "SUCCEEDED",
+              f"pipeline submit: {out[-2000:]}")
+        listed = run("job_list", ["-jt", addr, "job", "-list"])
+        states = [ln.split("\t")[1] for ln in listed.splitlines()]
+        check(states == ["SUCCEEDED"] * (2 * PIPE_CLI_ROUNDS),
+              f"job -list: {listed!r}")
+        t = time.monotonic()
+        for p in (tt, jt):
+            p.send_signal(signal.SIGTERM)
+        codes = [p.wait(timeout=120) for p in (tt, jt)]
+        secs["sigterm_to_exit"] = time.monotonic() - t
+        check(codes == [0, 0], f"daemons exited {codes} on SIGTERM")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    want = np.load(os.path.join(work, f"pipe-cents-r{PIPE_CLI_ROUNDS}.npy"))
+    for label, path in (("examples kmeans", "cli-out/centroids.npy"),
+                        ("pipeline submit",
+                         f"cli-cents-r{PIPE_CLI_ROUNDS}.npy")):
+        got = np.load(os.path.join(work, path))
+        check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"{label} through the daemons: centroids differ from round "
+              f"{PIPE_CLI_ROUNDS}'s by up to "
+              f"{float(np.abs(got - want).max()):.3g}")
+    row = {"seconds": time.monotonic() - t_all, "steps_s": secs,
+           "jobs_listed": len(states)}
+    log("pipeline_cli " + json.dumps(row))
+    return row
+
+
+def terasort_graph(root: str, stream: bool):
+    """tests/test_pipeline.py:353-398's chain for the port: teragen ->
+    sort (partition sampling in the master's hook) -> validate."""
+    from tpumr_torch.pipeline import JobGraph
+    pkg = "tpumr_torch"
+    seq_out = f"{pkg}.mapred.output_formats.SequenceFileOutputFormat"
+    seq_in = f"{pkg}.mapred.input_formats.SequenceFileInputFormat"
+    g = JobGraph(f"terasort-{'stream' if stream else 'dfs'}")
+    g.node("gen", {
+        "mapred.input.dir": f"{root}/rows.txt",
+        "mapred.output.dir": f"{root}/gen",
+        "mapred.input.format.class":
+            f"{pkg}.mapred.input_formats.NLineInputFormat",
+        "mapred.line.input.format.linespermap": 1,
+        "mapred.mapper.class": f"{pkg}.examples.terasort.TeraGenMapper",
+        "mapred.output.format.class": seq_out, "mapred.reduce.tasks": 0})
+    g.node("sort", {
+        "mapred.output.dir": f"{root}/sorted",
+        "mapred.input.format.class": seq_in,
+        "mapred.mapper.class": f"{pkg}.examples.terasort.TeraSortMapper",
+        "mapred.reducer.class": f"{pkg}.mapred.api.IdentityReducer",
+        "mapred.output.format.class": seq_out,
+        "mapred.output.key.comparator.class":
+            f"{pkg}.mapred.api.RawComparator",
+        "mapred.reduce.tasks": PIPE_TERA_REDUCES,
+    }, conf_hook=f"{pkg}.examples.terasort.pipeline_sort_hook")
+    validate = {
+        "mapred.output.dir": f"{root}/ok",
+        "mapred.mapper.class": f"{pkg}.examples.terasort.TeraValidateMapper",
+        "mapred.reducer.class":
+            f"{pkg}.examples.terasort.TeraValidateReducer",
+        "mapred.reduce.tasks": 1}
+    if not stream:
+        validate["mapred.input.format.class"] = seq_in
+        validate["mapred.min.split.size"] = 1 << 60
+    g.node("validate", validate)
+    g.edge("gen", "sort").edge("sort", "validate", stream=stream)
+    return g
+
+
+def pipeline_terasort(work: str, rows: int) -> dict:
+    """(c): TeraSort's chain as one pipeline on a mini cluster of CPU
+    slots (the host shuffle), once with a dfs edge sort -> validate and
+    once with a stream edge: the same sorted records part for part, the
+    input's count and checksum, an empty validate output, and the streamed
+    validate's splits all streamed."""
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.mini_cluster import MiniMRCluster
+    from tpumr_torch.pipeline import PipelineClient
+    from tpumr_torch.pipeline.handoff import (COUNTER_FALLBACK,
+                                              COUNTER_GROUP,
+                                              COUNTER_STREAMED)
+    per = rows // PIPE_TERA_MAPS
+    last = PIPE_TERA_MAPS - 1
+    lines = "".join(f"{m * per} {per if m < last else rows - m * per}\n"
+                    for m in range(PIPE_TERA_MAPS))
+    base = JobConf()
+    base.set("mapred.reduce.slowstart.completed.maps", 0.0)
+    out = {}
+    with MiniMRCluster(num_trackers=1, cpu_slots=PIPE_TERA_MAPS,
+                       tpu_slots=0, conf=base) as c:
+        client = PipelineClient(c.create_job_conf())
+        try:
+            for tag, stream in (("dfs", False), ("stream", True)):
+                root = os.path.join(work, f"tera-{tag}")
+                os.makedirs(root)
+                with open(os.path.join(root, "rows.txt"), "w") as f:
+                    f.write(lines)
+                t = time.monotonic()
+                st = client.submit(terasort_graph(f"file://{root}", stream)) \
+                    .wait_for_completion(poll_s=0.1, timeout=PIPE_TIMEOUT_S)
+                secs = time.monotonic() - t
+                check(st["state"] == "SUCCEEDED",
+                      f"terasort pipeline ({tag}): {st}")
+                val = c.master.jobs[st["nodes"]["validate"]["job_id"]]
+                ok = b"".join(open(p, "rb").read()
+                              for p in seq_files(os.path.join(root, "ok")))
+                out[tag] = {
+                    "seconds": secs,
+                    "stage_s": {nid: c.master.jobs[n["job_id"]].finish_time
+                                - c.master.jobs[n["job_id"]].start_time
+                                for nid, n in st["nodes"].items()},
+                    "streamed_splits": val.counters.value(COUNTER_GROUP,
+                                                          COUNTER_STREAMED),
+                    "fallback_splits": val.counters.value(COUNTER_GROUP,
+                                                          COUNTER_FALLBACK),
+                    "validate_output_bytes": len(ok)}
+                check(ok == b"", f"terasort pipeline ({tag}): validate "
+                      f"reported {ok[:500]!r}")
+                sums = rows_checksum(os.path.join(root, "sorted"))
+                check(sums == rows_checksum(os.path.join(root, "gen"))
+                      and sums["records"] == rows,
+                      f"terasort pipeline ({tag}) lost or changed records")
+        finally:
+            client.close()
+    same_parts(os.path.join(work, "tera-dfs", "sorted"),
+               os.path.join(work, "tera-stream", "sorted"),
+               "the dfs and streamed chains")
+    check(out["stream"]["streamed_splits"] == PIPE_TERA_REDUCES
+          and out["stream"]["fallback_splits"] == 0
+          and out["dfs"]["streamed_splits"] == 0,
+          f"terasort pipeline handoff counters: {out}")
+    row = {"records": rows, "maps": PIPE_TERA_MAPS,
+           "reduces": PIPE_TERA_REDUCES} | out
+    log("pipeline_terasort " + json.dumps(row))
+    return row
+
+
+def pipeline_phase(km, n: int, tera_rows: int) -> dict:
+    """The pipeline engine on the card: (a) the K-Means loop node on a
+    mini cluster with one GPU slot, (b) the command line's daemons, (c)
+    TeraSort's chain as one pipeline. The hybrid phase's points, written
+    again by hybrid_data (no matrices)."""
+    from tpumr_torch.examples.basic import load_npy_rows
+    from tpumr_torch.fs.filesystem import FileSystem
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.mini_cluster import MiniMRCluster
+    from tpumr_torch.ops import devcache
+    t_phase = time.monotonic()
+    work = tempfile.mkdtemp(prefix="tpumr_torch-pipeline-")
+    try:
+        hybrid_data(work, n, 0)
+        points = f"file://{work}/points.npy"
+        seeds = load_npy_rows(FileSystem.get(points), points, K)
+        for prefix in ("pipe-", "seq-"):
+            np.save(os.path.join(work, f"{prefix}cents-r0.npy"),
+                    seeds.astype(np.float32))
+        gpu_runner.clear_split_caches()
+        devcache.clear_device_cache()
+        with MiniMRCluster(num_trackers=1, cpu_slots=0, tpu_slots=1,
+                           conf=JobConf()) as c:
+            loop = pipeline_loop(c, work, n, km)
+        km.clear_pipeline_caches()
+        gpu_runner.clear_split_caches()
+        cli = pipeline_cli(work, km)
+        tera = pipeline_terasort(work, tera_rows)
+        check(not [th.name for th in threading.enumerate()
+                   if th.name.startswith(("heartbeat-", "task-",
+                                          "rpc-server", "jobmaster-"))],
+              "a pipeline cluster left threads running")
+        secs = time.monotonic() - t_phase
+        log("pipeline_phase " + json.dumps({"seconds": secs}))
+        return {"loop": loop, "cli": cli, "terasort": tera,
+                "seconds": secs,
+                "launches": sum(v["kmeans_assign_partials"]
+                                for v in loop["launches"].values())}
+    finally:
+        gpu_runner.clear_split_caches()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def matmul_bound_ms(m: int, k: int, n: int, peak_flops: float
                     ) -> tuple[float, str]:
     """Least time for one map's product: the f32 operands read once and
@@ -1998,7 +2451,8 @@ def teravalidate(out: str, report: str) -> None:
           and "FAILED" not in printed, f"teravalidate: {printed!r}")
 
 
-def same_parts(a: str, b: str) -> int:
+def same_parts(a: str, b: str, what: str = "host and device shuffles"
+               ) -> int:
     """Two output dirs hold the same record sequences, part for part."""
     pa, pb = seq_files(a), seq_files(b)
     check([os.path.basename(p) for p in pa] ==
@@ -2007,7 +2461,7 @@ def same_parts(a: str, b: str) -> int:
     for x, y in zip(pa, pb):
         (kx, vx), (ky, vy) = read_seq_batch(x), read_seq_batch(y)
         check(np.array_equal(kx, ky) and np.array_equal(vx, vy),
-              f"{os.path.basename(x)}: host and device shuffles differ")
+              f"{os.path.basename(x)}: {what} differ")
         total += kx.shape[0]
     return total
 
@@ -2208,7 +2662,10 @@ def main() -> None:
     ap.add_argument("--tera-rows", type=int, default=TERA_ROWS,
                     help="records of the terasort phase's 10 GB job")
     ap.add_argument("--hybrid-points", type=int, default=HYB_N,
-                    help="K-Means points of the hybrid phase's jobs")
+                    help="K-Means points of the hybrid and pipeline "
+                         "phases' jobs")
+    ap.add_argument("--pipeline-tera-rows", type=int, default=PIPE_TERA_ROWS,
+                    help="records of the pipeline phase's TeraSort chain")
     ap.add_argument("--profile", action="store_true",
                     help="also profile two more warm jobs, device and host "
                          "(chiprun_out/)")
@@ -2243,6 +2700,7 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     hybrid = hybrid_phase(km, args.hybrid_points)
+    pipeline = pipeline_phase(km, args.hybrid_points, args.pipeline_tera_rows)
     job2 = second_job(km)
     job3 = third_job(km)
     matmul_phase()
@@ -2256,7 +2714,7 @@ def main() -> None:
         "replaces": "tpumr/ops/kmeans.py:57",
         "launches": main["launches"]["kmeans_assign_partials"]
         + rounds["launches"]["kmeans_assign_partials"]
-        + hybrid["launches"],
+        + hybrid["launches"] + pipeline["launches"],
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

@@ -42,7 +42,9 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
                  "examples.terasort", "ipc.rpc", "mapred.job_in_progress",
                  "mapred.scheduler", "mapred.jobtracker",
                  "mapred.tasktracker", "mapred.shuffle_copier",
-                 "mapred.job_client", "mapred.mini_cluster"):
+                 "mapred.job_client", "mapred.mini_cluster",
+                 "pipeline.graph", "pipeline.pipeline_in_progress",
+                 "pipeline.handoff", "pipeline.client", "cli"):
         assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 

@@ -1,24 +1,333 @@
-"""Command line of the port: ``python -m tpumr_torch.cli examples <name>
-<args>``.
+"""Command line of the port: ``python -m tpumr_torch.cli [generic options]
+COMMAND [args]``.
 
-Counterpart of the ``examples`` subcommand of ``tpumr/cli.py``
-(``cmd_examples``); the port has no other subcommand yet.
+Counterpart of ``tpumr/cli.py``, trimmed to the commands the port has.
+Generic options come before the command (``_parse_generic``, ``:83-110``
+there): ``-D k=v`` (or ``-Dk=v``), ``-conf FILE``, ``-fs URI`` and ``-jt
+HOST:PORT|local``. ``$TPUMR_CONF_DIR/tpumr-site.{toml,json}`` loads by
+itself (``_site_files``, ``:115-131``). The layers, lowest first: the
+defaults, the site file, the ``-conf`` files in order, then ``-D``,
+``-fs`` and ``-jt``. They are installed as default resources for the
+command's run (``main``, ``:1529-1560``), so they also reach the confs a
+command builds itself (``examples``' jobs), and removed after it, so that
+calls in one process do not pile them up. A ``-conf`` file that cannot be
+read raises before the command runs.
+
+Commands: ``jobtracker`` and ``tasktracker``, which serve until SIGTERM or
+SIGINT (``:141-154, 212-236``); ``job -list | -status ID | -kill ID |
+-counters ID`` (``:267-396``); ``pipeline submit GRAPH.json [-wait] |
+status ID | -list | -kill ID`` (``:397-479``); ``examples``; ``version``.
+``job -history``, ``job -diagnose``, ``job trace``, ``job stats`` and
+``pipeline trace`` wait for the port's job history and tracing: each says
+so and returns 255. The reference's other daemons and tools are not
+ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import signal
 import sys
+import threading
+from typing import Any, Callable
 
-USAGE = "usage: python -m tpumr_torch.cli examples <program> [args]"
+USAGE = """\
+Usage: python -m tpumr_torch.cli [generic options] COMMAND [args]
+Generic options: -D k=v  -conf FILE  -fs <default-fs-uri>  -jt <host:port|local>
+Site config: $TPUMR_CONF_DIR/tpumr-site.{toml,json} loads automatically
+(precedence: defaults < site file < -conf files < -D/-fs/-jt)
+
+Daemons:
+  jobtracker [-host H] [-port P]   run the JobMaster (-port 0: a free port)
+  tasktracker -jt HOST:PORT        run a NodeRunner (worker)
+
+Clients:
+  job ...              job control: -list | -status ID | -kill ID | -counters ID
+  pipeline ...         DAG-of-jobs pipelines: submit GRAPH.json [-wait] |
+                       status ID | -list | -kill ID
+  examples NAME ...    run an example program (examples -h lists them)
+  version              print the version
+"""
+
+VERSION = "0.1.0"
+
+#: what the JAX package has and the port does not yet
+_NOT_PORTED = ("needs the job history and tracing, which are not ported "
+               "to tpumr_torch")
+
+
+def _parse_generic(argv: "list[str]"
+                   ) -> "tuple[dict[str, Any], list[str], list[str]]":
+    """Strip the leading generic options: (overrides, ``-conf`` files, the
+    rest of ``argv``), stopping at the first argument that is not one."""
+    over: "dict[str, Any]" = {}
+    conf_files: "list[str]" = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "-D" and i + 1 < len(argv):
+            k, _, v = argv[i + 1].partition("=")
+            over[k.strip()] = v.strip()
+            i += 2
+        elif a.startswith("-D") and "=" in a:
+            k, _, v = a[2:].partition("=")
+            over[k.strip()] = v.strip()
+            i += 1
+        elif a == "-conf" and i + 1 < len(argv):
+            conf_files.append(argv[i + 1])
+            i += 2
+        elif a == "-fs" and i + 1 < len(argv):
+            over["fs.default.name"] = argv[i + 1]
+            i += 2
+        elif a == "-jt" and i + 1 < len(argv):
+            over["mapred.job.tracker"] = argv[i + 1]
+            i += 2
+        else:
+            break
+    return over, conf_files, argv[i:]
+
+
+def _site_files(conf_files: "list[str]") -> "list[str]":
+    """Resource files, lowest first: ``$TPUMR_CONF_DIR``'s site files that
+    exist, then the ``-conf`` files (a missing one raises when loaded)."""
+    out: "list[str]" = []
+    conf_dir = os.environ.get("TPUMR_CONF_DIR")
+    if conf_dir:
+        for name in ("tpumr-site.toml", "tpumr-site.json"):
+            p = os.path.join(conf_dir, name)
+            if os.path.exists(p):
+                out.append(p)
+    out.extend(conf_files)
+    return out
+
+
+def _conf(overrides: "dict[str, Any]"):
+    from tpumr_torch.mapred.jobconf import JobConf
+    conf = JobConf()
+    for k, v in overrides.items():
+        conf.set(k, v)
+    return conf
+
+
+def _serve_forever(stop: Callable[[], None]) -> int:
+    """Block until SIGINT or SIGTERM, then ``stop()`` the daemon."""
+    done = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            signal.signal(sig, lambda *_: done.set())
+        except ValueError:   # not the main thread
+            pass
+    try:
+        while not done.wait(0.5):
+            pass
+    finally:
+        stop()
+    return 0
+
+
+def _kv_args(argv: "list[str]") -> "dict[str, str]":
+    """The daemons' ``-name value`` pairs."""
+    out: "dict[str, str]" = {}
+    i = 0
+    while i < len(argv):
+        if argv[i].startswith("-") and i + 1 < len(argv):
+            out[argv[i].lstrip("-")] = argv[i + 1]
+            i += 2
+        else:
+            raise SystemExit(f"unexpected argument: {argv[i]}")
+    return out
+
+
+def _host_port(s: str) -> "tuple[str, int]":
+    host, _, port = s.partition(":")
+    return host or "127.0.0.1", int(port)
+
+
+def _master(conf) -> "str | None":
+    jt = conf.get("mapred.job.tracker")
+    return None if not jt or jt == "local" else str(jt)
+
+
+# ------------------------------------------------------------------ daemons
+
+
+def cmd_jobtracker(conf, argv: "list[str]") -> int:
+    from tpumr_torch.mapred.jobtracker import JobMaster
+    a = _kv_args(argv)
+    jm = JobMaster(conf, host=a.get("host", "127.0.0.1"),
+                   port=int(a.get("port", 9001))).start()
+    host, port = jm.address
+    print(f"JobMaster up at {host}:{port}", file=sys.stderr, flush=True)
+    return _serve_forever(jm.stop)
+
+
+def cmd_tasktracker(conf, argv: "list[str]") -> int:
+    """A node runner; its slots come from the
+    ``mapred.tasktracker.{map.cpu,map.tpu,reduce}.tasks.maximum`` keys."""
+    from tpumr_torch.mapred.tasktracker import NodeRunner
+    a = _kv_args(argv)
+    jt = a.get("jt") or _master(conf)
+    if not jt or ":" not in jt:
+        print("tasktracker needs -jt HOST:PORT", file=sys.stderr)
+        return 255
+    host, port = _host_port(jt)
+    nr = NodeRunner(host, port, conf).start()
+    print(f"NodeRunner up, heartbeating to {host}:{port}", file=sys.stderr,
+          flush=True)
+    return _serve_forever(nr.stop)
+
+
+# ------------------------------------------------------------------ clients
+
+
+def cmd_job(conf, argv: "list[str]") -> int:
+    from tpumr_torch.ipc.rpc import RpcClient, RpcError
+    usage = ("Usage: python -m tpumr_torch.cli job -list | -status ID | "
+             "-kill ID | -counters ID")
+    if argv and argv[0].lstrip("-") in ("history", "diagnose", "trace",
+                                        "stats"):
+        print(f"job {argv[0]} {_NOT_PORTED}", file=sys.stderr)
+        return 255
+    jt = _master(conf)
+    if not jt:
+        print("job control needs -jt HOST:PORT", file=sys.stderr)
+        return 255
+    if not argv or (argv[0] != "-list" and len(argv) < 2):
+        print(usage, file=sys.stderr)
+        return 255
+    cmd, *rest = argv
+    client = RpcClient(*_host_port(jt))
+    try:
+        if cmd == "-list":
+            for jid in client.call("list_jobs"):
+                st = client.call("get_job_status", jid)
+                print(f"{jid}\t{st.get('state')}"
+                      f"\t{st.get('priority', 'NORMAL')}"
+                      f"\tmaps={st.get('map_progress'):.2f}"
+                      f"\treduces={st.get('reduce_progress'):.2f}")
+            return 0
+        if cmd == "-status":
+            print(json.dumps(client.call("get_job_status", rest[0]),
+                             indent=2, default=str))
+            return 0
+        if cmd == "-counters":
+            print(json.dumps(client.call("get_counters", rest[0]),
+                             indent=2, default=str))
+            return 0
+        if cmd == "-kill":
+            ok = client.call("kill_job", rest[0])
+            print(f"Killed {rest[0]}" if ok
+                  else f"{rest[0]} already finished; not killed")
+            return 0 if ok else 1
+    except RpcError as e:
+        print(f"job {cmd}: {e}", file=sys.stderr)
+        return 1
+    finally:
+        client.close()
+    print(f"job: unknown option {cmd}", file=sys.stderr)
+    return 255
+
+
+def cmd_pipeline(conf, argv: "list[str]") -> int:
+    """Submit a ``JobGraph``'s wire form (JSON), poll, list or kill."""
+    from tpumr_torch.ipc.rpc import RpcError
+    usage = ("Usage: python -m tpumr_torch.cli pipeline submit GRAPH.json "
+             "[-wait] | status ID | -list | -kill ID")
+    if argv and argv[0].lstrip("-") == "trace":
+        print(f"pipeline {argv[0]} {_NOT_PORTED}", file=sys.stderr)
+        return 255
+    if not _master(conf):
+        print("pipelines need -jt HOST:PORT (a cluster master)",
+              file=sys.stderr)
+        return 255
+    if not argv or (argv[0] != "-list" and len(argv) < 2):
+        print(usage, file=sys.stderr)
+        return 255
+    from tpumr_torch.pipeline import PipelineClient
+    client = PipelineClient(conf)
+    cmd, *rest = argv
+    try:
+        if cmd == "submit":
+            with open(rest[0]) as f:
+                graph = json.load(f)
+            running = client.submit(graph)
+            print(running.pipeline_id, flush=True)
+            if "-wait" in rest:
+                st = running.wait_for_completion()
+                print(json.dumps(st, indent=2, default=str))
+                return 0 if st["state"] == "SUCCEEDED" else 1
+            return 0
+        if cmd in ("status", "-status"):
+            print(json.dumps(client.status(rest[0]), indent=2, default=str))
+            return 0
+        if cmd == "-list":
+            for p in client.list():
+                done = sum(1 for n in p["nodes"].values()
+                           if n["state"] == "SUCCEEDED")
+                print(f"{p['pipeline_id']}\t{p['state']}"
+                      f"\t{p.get('name', '')}"
+                      f"\tstages={done}/{len(p['nodes'])}")
+            return 0
+        if cmd == "-kill":
+            ok = client.running(rest[0]).kill()
+            print(f"Killed {rest[0]}" if ok
+                  else f"{rest[0]} already finished; not killed")
+            return 0 if ok else 1
+    except (RpcError, OSError, ValueError) as e:
+        print(f"pipeline {cmd}: {e}", file=sys.stderr)
+        return 1
+    finally:
+        client.close()
+    print(f"pipeline: unknown option {cmd}", file=sys.stderr)
+    return 255
+
+
+def cmd_examples(conf, argv: "list[str]") -> int:
+    from tpumr_torch.examples import main as ex_main
+    return ex_main(argv)
+
+
+def cmd_version(conf, argv: "list[str]") -> int:
+    print(f"tpumr_torch {VERSION}")
+    return 0
+
+
+COMMANDS = {
+    "jobtracker": cmd_jobtracker,
+    "tasktracker": cmd_tasktracker,
+    "job": cmd_job,
+    "pipeline": cmd_pipeline,
+    "examples": cmd_examples,
+    "version": cmd_version,
+}
 
 
 def main(argv: "list[str] | None" = None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] != "examples":
-        print(USAGE, file=sys.stderr)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    overrides, conf_files, rest = _parse_generic(argv)
+    if not rest:
+        sys.stderr.write(USAGE)
         return 255
-    from tpumr_torch.examples import main as ex_main
-    return ex_main(argv[1:])
+    cmd, *args = rest
+    fn = COMMANDS.get(cmd)
+    if fn is None:
+        sys.stderr.write(f"Unknown command: {cmd}\n\n" + USAGE)
+        return 255
+    from tpumr_torch.core.configuration import Configuration
+    layers: "list[dict | str]" = list(_site_files(conf_files))
+    if overrides:
+        layers.append(overrides)
+    installed = 0
+    try:
+        for layer in layers:
+            # a broken -conf file raises here, before the command runs
+            Configuration.add_default_resource(layer)
+            installed += 1
+        return fn(_conf(overrides), args)
+    finally:
+        if installed:
+            del Configuration._default_resources[-installed:]
 
 
 if __name__ == "__main__":

@@ -1,13 +1,19 @@
 """Key/value configuration with typed getters.
 
-Counterpart of ``tpumr/core/configuration.py``, trimmed to what the K-Means
-job path uses: a defaults layer under explicit ``set()`` values, the typed
-getters, and class-valued keys. The key strings are the JAX package's, so a
-job configuration written for it reads the same here.
+Counterpart of ``tpumr/core/configuration.py``, trimmed to what the port's
+jobs and its command line use: a defaults layer, resource layers over it in
+the order they were added (dicts, ``.json`` or ``.toml`` files, nested TOML
+tables flattened to dotted keys; ``:54-90`` there), process-wide default
+resources that every new configuration starts with, explicit ``set()``
+values over all of them, the typed getters and class-valued keys. Left out:
+``${var}`` expansion, deprecations and size suffixes. The key strings are
+the JAX package's, so a job configuration written for it reads the same
+here.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Mapping
 
 from tpumr_torch.utils.reflection import class_name, resolve_class
@@ -17,27 +23,77 @@ _FALSE = {"false", "no", "off", "0"}
 
 
 class Configuration:
-    """Explicit values over a defaults layer, parsed on read."""
+    """Explicit values over resource layers over a defaults layer, parsed
+    on read."""
+
+    #: process-wide default resources, copied into every new configuration
+    #: that is not a copy of another (the command line's generic options)
+    _default_resources: "list[dict[str, Any]]" = []
 
     def __init__(self, other: "Configuration | None" = None,
                  defaults: "Mapping[str, Any] | None" = None) -> None:
         self._defaults: dict[str, Any] = dict(defaults or {})
+        self._resources: "list[dict[str, Any]]" = []
         self._values: dict[str, Any] = {}
         if other is not None:
             self._defaults.update(other._defaults)
+            self._resources = [dict(r) for r in other._resources]
             self._values = dict(other._values)
+        else:
+            self._resources = [dict(r)
+                               for r in Configuration._default_resources]
+
+    @classmethod
+    def add_default_resource(cls,
+                             resource: "Mapping[str, Any] | str") -> None:
+        """A process-wide layer for every configuration made after it: a
+        dict, or a path to a ``.json`` or ``.toml`` file."""
+        cls._default_resources.append(
+            cls._load_file(resource) if isinstance(resource, str)
+            else dict(resource))
+
+    def add_resource(self, resource: "Mapping[str, Any] | str") -> None:
+        """A layer over the earlier ones: a dict, or a path to a ``.json``
+        or ``.toml`` file."""
+        self._resources.append(
+            self._load_file(resource) if isinstance(resource, str)
+            else dict(resource))
+
+    @staticmethod
+    def _load_file(path: str) -> dict[str, Any]:
+        with open(path, "rb") as f:
+            data = f.read()
+        if path.endswith(".toml"):
+            import tomllib
+            flat: dict[str, Any] = {}
+
+            def walk(prefix: str, node: Any) -> None:
+                if isinstance(node, dict):
+                    for k, v in node.items():
+                        walk(f"{prefix}.{k}" if prefix else k, v)
+                else:
+                    flat[prefix] = node
+
+            walk("", tomllib.loads(data.decode("utf-8")))
+            return flat
+        return json.loads(data.decode("utf-8"))
 
     def get(self, key: str, default: Any = None) -> Any:
         if key in self._values:
             return self._values[key]
+        for res in reversed(self._resources):
+            if key in res:
+                return res[key]
         return self._defaults.get(key, default)
 
     def set(self, key: str, value: Any) -> None:
         self._values[key] = value
 
     def __iter__(self):
-        """(key, value) of every key, set values over defaults."""
+        """(key, value) of every key, each from its topmost layer."""
         merged = dict(self._defaults)
+        for res in self._resources:
+            merged.update(res)
         merged.update(self._values)
         return iter(merged.items())
 

@@ -28,11 +28,10 @@ from tpumr_torch.mapred.input_formats import (DenseInputFormat,
                                               RawTextInputFormat,
                                               TextInputFormat,
                                               read_npy_header)
+from tpumr_torch.mapred.job_client import run_job
 from tpumr_torch.mapred.jobconf import JobConf
-from tpumr_torch.mapred.local_runner import run_job
 from tpumr_torch.ops.grep import GrepCpuMapper
-from tpumr_torch.ops.kmeans import (CentroidReducer, KMeansCpuMapper,
-                                    clear_centroid_cache)
+from tpumr_torch.ops.kmeans import CentroidReducer, KMeansCpuMapper
 from tpumr_torch.ops.matmul import MatmulCpuMapper
 from tpumr_torch.ops.pi import PiCpuMapper
 from tpumr_torch.ops.wordcount import WordCountCpuMapper
@@ -192,8 +191,10 @@ def pi(argv: list[str]) -> int:
 @register("kmeans", "iterative K-Means clustering (the north-star job)")
 def kmeans(argv: list[str]) -> int:
     """Iterative K-Means: each round is one job (assignment and partial
-    sums in the maps, centroid means in the reduce) that rewrites one
-    centroid file, so the centroid caches are cleared every round."""
+    sums in the maps, centroid means in the reduce), submitted where
+    ``mapred.job.tracker`` says, that rewrites one centroid file. The
+    centroid caches, here and on a runner, check the file's length and
+    mtime, so each round reads the file that the last one wrote."""
     ap = argparse.ArgumentParser(prog="tpumr_torch examples kmeans")
     ap.add_argument("points", help=".npy of shape (n, d)")
     ap.add_argument("output", help="output directory URI")
@@ -209,8 +210,8 @@ def kmeans(argv: list[str]) -> int:
     save_npy(fs, cent_path, seeds.astype(np.float32))
     centroids: Any = None
     for it in range(args.iterations):
-        clear_centroid_cache()
         conf = JobConf()
+        conf.set_job_name(f"kmeans-iter-{it}")
         conf.set_input_paths(args.points)
         conf.set_output_path(f"{out}/iter{it}")
         conf.set_input_format(DenseInputFormat)

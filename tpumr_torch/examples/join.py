@@ -16,8 +16,8 @@ from tpumr_torch.examples import (add_conf_option, apply_conf_option,
                                   register)
 from tpumr_torch.mapred.api import Mapper, Reducer
 from tpumr_torch.mapred.input_formats import TextInputFormat
+from tpumr_torch.mapred.job_client import run_job
 from tpumr_torch.mapred.jobconf import JobConf
-from tpumr_torch.mapred.local_runner import run_job
 
 
 class TaggedJoinMapper(Mapper):

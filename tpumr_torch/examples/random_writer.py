@@ -20,8 +20,8 @@ from tpumr_torch.examples import (add_conf_option, apply_conf_option,
 from tpumr_torch.fs.filesystem import FileSystem
 from tpumr_torch.mapred.api import Mapper
 from tpumr_torch.mapred.input_formats import NLineInputFormat
+from tpumr_torch.mapred.job_client import run_job
 from tpumr_torch.mapred.jobconf import JobConf
-from tpumr_torch.mapred.local_runner import run_job
 from tpumr_torch.mapred.output_formats import SequenceFileOutputFormat
 
 

@@ -18,8 +18,8 @@ from tpumr_torch.examples import (add_conf_option, apply_conf_option,
                                   register)
 from tpumr_torch.mapred.api import IdentityMapper, IdentityReducer
 from tpumr_torch.mapred.input_formats import SequenceFileInputFormat
+from tpumr_torch.mapred.job_client import run_job
 from tpumr_torch.mapred.jobconf import JobConf
-from tpumr_torch.mapred.local_runner import run_job
 from tpumr_torch.mapred.output_formats import SequenceFileOutputFormat
 from tpumr_torch.mapred.total_order import (TotalOrderPartitioner,
                                             sample_input,

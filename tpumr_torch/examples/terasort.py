@@ -1,12 +1,13 @@
 """TeraGen, TeraSort and TeraValidate.
 
-Counterpart of ``tpumr/examples/terasort.py`` (all of it but
-``pipeline_sort_hook``, which needs the pipeline engine): 100-byte records,
+Counterpart of ``tpumr/examples/terasort.py``: 100-byte records,
 a 10-byte key of printable bytes and a 90-byte value led by the 10-digit
 row number, generated from the row number alone; sorted through a sampled
 partition file and ``TotalOrderPartitioner`` (the host shuffle) or on the
 card (``--device-shuffle``, ``mapred/device_shuffle.py``); then checked for
 global order. The records are SequenceFiles with ``bytes`` keys and values.
+In a pipeline (teragen, sort, validate as one graph) the sort stage's
+sampling runs in the master through :func:`pipeline_sort_hook`.
 
 Each program takes ``-D key=value`` for the job conf, as the port's other
 examples do; ``-D tpumr_torch.device=cpu`` runs it on the CPU. Without it
@@ -26,8 +27,8 @@ from tpumr_torch.mapred.api import (IdentityReducer, Mapper, RawComparator,
                                     Reducer)
 from tpumr_torch.mapred.input_formats import (NLineInputFormat,
                                               SequenceFileInputFormat)
+from tpumr_torch.mapred.job_client import run_job
 from tpumr_torch.mapred.jobconf import JobConf
-from tpumr_torch.mapred.local_runner import run_job
 from tpumr_torch.mapred.output_formats import SequenceFileOutputFormat
 from tpumr_torch.mapred.total_order import (TotalOrderPartitioner,
                                             sample_input,
@@ -216,6 +217,25 @@ def make_terasort_conf(input_path: str, output_path: str, reduces: int,
     if device_shuffle:
         conf.set_device_shuffle(KEY_LEN, VALUE_LEN)
     return conf
+
+
+def pipeline_sort_hook(conf: dict, upstreams: dict) -> None:
+    """``conf_hook`` of a pipeline's sort stage: the sampling that
+    ``terasort`` runs in the client between jobs needs teragen's output,
+    so in a pipeline the master runs it just before it submits the stage,
+    whose input is already wired to that output. Writes
+    ``<output>.partitions`` and names ``TotalOrderPartitioner``."""
+    jc = JobConf()
+    for k, v in conf.items():
+        jc.set(k, v)
+    reduces = int(conf.get("mapred.reduce.tasks", 1) or 1)
+    samples = sample_input(jc, num_samples=1000)
+    write_partition_file(jc, str(conf["mapred.output.dir"]).rstrip("/")
+                         + ".partitions", samples, reduces)
+    for k, v in jc:
+        conf[k] = v   # the partition file's key among them
+    conf["mapred.partitioner.class"] = \
+        "tpumr_torch.mapred.total_order.TotalOrderPartitioner"
 
 
 @register("teravalidate", "validate that terasort output is globally sorted")

@@ -24,7 +24,13 @@ same numbers from the same task statuses:
   report at assignment, the placement timeline, :meth:`status_dict` and
   the job's summed counters;
 - :class:`CompletionEventFeed`, the append-only map-completion feed that
-  reduces poll for map output locations.
+  reduces poll for map output locations, and a second one,
+  ``handoff_events``, on which a streaming pipeline stage announces each
+  committed reduce partition (``map_index`` holding the partition;
+  ``:341-356, 1083-1090``); :meth:`withdraw_handoff_at` tombstones a lost
+  runner's announcements (``:1360-1385``);
+- ``sched_anchor``, the FIFO sort key: the submit time, or the pipeline's
+  for a pipeline's stage job (``:357``).
 
 Left out (``ROADMAP.md``): speculative attempts, fetch-failure accounting,
 restart recovery, the progress-rate model, brownout holds, rack locality,
@@ -58,6 +64,11 @@ _DEFAULTS = {"mapred.reduce.tasks": 1, "mapred.map.max.attempts": 4,
 def _conf_value(conf: dict, key: str) -> Any:
     v = conf.get(key)
     return _DEFAULTS[key] if v is None else v
+
+
+def _flag(conf: dict, key: str) -> bool:
+    return str(conf.get(key, "")).strip().lower() in ("true", "1", "yes",
+                                                     "on")
 
 
 class CompletionEventFeed:
@@ -195,6 +206,16 @@ class JobInProgress:
         self._cpu_ewma = 0.0
         self._tpu_ewma = 0.0
         self.completion_events = CompletionEventFeed()
+        #: a pipeline stage whose reduces tee their output for a streamed
+        #: downstream stage (the device-shuffled reduce has no tee)
+        self.stream_handoff = (
+            _flag(self.conf, "tpumr.pipeline.stream.handoff")
+            and not _flag(self.conf, "tpumr.shuffle.device"))
+        #: committed reduce partitions announced to downstream stages
+        self.handoff_events = CompletionEventFeed()
+        #: the scheduler's FIFO key: the submit time, or the pipeline's
+        #: submit time for a stage job (set by the master)
+        self.sched_anchor = self.start_time
         #: (seconds since submit, 'T' | 'c') per map assignment
         self.placement_series: list = []
         #: heartbeats in which the scheduler gave this job a CPU budget of
@@ -373,6 +394,11 @@ class JobInProgress:
         else:
             self._pending_reduces.discard(tip.partition)
             self.finished_reduces += 1
+            if self.stream_handoff:
+                self.handoff_events.append({
+                    "map_index": tip.partition,
+                    "attempt_id": str(status.attempt_id),
+                    "shuffle_addr": shuffle_addr, "status": "SUCCEEDED"})
         if (self.finished_maps == len(self.maps)
                 and self.finished_reduces == len(self.reduces)):
             self.state = JobState.SUCCEEDED
@@ -451,6 +477,23 @@ class JobInProgress:
                                 dict(e, status="OBSOLETE"))
                     withdrawn.append(aid)
         return withdrawn
+
+    def withdraw_handoff_at(self, addr: str) -> int:
+        """The runner serving handoff copies at ``addr`` is gone: tombstone
+        its announcements, so that downstream readers read the committed
+        part files instead (the reduce is not rerun: its output survived
+        the runner). Runs for ended jobs too, since a finished stage still
+        serves a running pipeline. Returns the partitions withdrawn."""
+        if not self.stream_handoff:
+            return 0
+        with self.lock:
+            live = [e for e in self.handoff_events
+                    if e.get("shuffle_addr") == addr
+                    and e.get("status") != "OBSOLETE"]
+            for e in live:
+                e["status"] = "OBSOLETE"
+                self.handoff_events.append(dict(e))
+        return len(live)
 
     def kill(self) -> bool:
         """To KILLED; True only for the caller that made the change."""

@@ -20,19 +20,38 @@ RPC methods: ``submit_job(conf_dict, splits)`` (``:1326``),
 ``heartbeat(status, initial_contact, ask_for_new_task, response_id)``,
 ``get_job_status`` (``:1636``), ``get_counters``, ``get_task_reports``,
 ``get_map_completion_events`` (``:1893``), ``get_job_conf``,
-``can_commit`` (``:2373``), ``kill_job`` and ``get_protocol_version``. The
-master is the scheduler's ``TaskTrackerManager`` (``running_jobs``,
-``num_trackers``, ``total_slots``).
+``can_commit`` (``:2373``), ``kill_job``, ``list_jobs`` (``:1503``) and
+``get_protocol_version``. The master is the scheduler's
+``TaskTrackerManager`` (``running_jobs``, ``num_trackers``,
+``total_slots``).
+
+Pipelines (``:1967-2133, 2159-2347, 3221``): ``submit_pipeline(graph)``
+validates a ``JobGraph``'s wire form, refuses a conf hook outside the
+prefixes of ``tpumr.pipeline.conf.hooks.allowed`` (default
+``tpumr_torch.``: the JAX package's default, ``tpumr.``, admits no hook of
+the port), and submits the source stages before it returns. The
+``jobmaster-pipeline`` thread advances every running pipeline when a
+heartbeat or a job's commit wakes it, and every 0.5 s otherwise:
+:meth:`JobMaster._submit_stage` builds each due stage outside the pipeline
+lock (its round's conf, the dfs inputs or the handoff splits of a streamed
+stage, the conf hook, then ``job_client.build_submission``, the helper the
+client uses). ``get_pipeline_status``, ``list_pipelines``,
+``kill_pipeline``, ``get_handoff_completion_events`` and
+``handoff_purgeable`` serve clients and runners. A lost runner's handoff
+announcements are withdrawn with its map outputs.
 
 Left out (``ROADMAP.md``): job history, tracing and metrics, the sharded
-tracker registry and lock ranks, ACLs, queues and tokens, pipelines, the
-HTTP pages, restart recovery and tracker adoption, the heartbeat delta
-encoding, blacklisting, fetch-failure re-execution and host include and
-exclude lists.
+tracker registry and lock ranks, ACLs, queues and tokens, the HTTP pages,
+restart recovery (of jobs and pipelines) and tracker adoption, the
+heartbeat delta encoding, blacklisting, fetch-failure re-execution and host
+include and exclude lists.
 """
 
 from __future__ import annotations
 
+import importlib
+import json
+import logging
 import threading
 import time
 from typing import Any
@@ -43,11 +62,21 @@ from tpumr_torch.mapred.job_in_progress import JobInProgress, JobState
 from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.scheduler import HybridQueueScheduler
 from tpumr_torch.mapred.task import TaskState, TaskStatus
+from tpumr_torch.pipeline.graph import JobGraph
+from tpumr_torch.pipeline.handoff import build_handoff_splits
+from tpumr_torch.pipeline.pipeline_in_progress import (PipelineInProgress,
+                                                       PipelineState)
 from tpumr_torch.utils.reflection import new_instance
 
 PROTOCOL_VERSION = 29
-#: seconds ``stop`` waits for the expiry thread
+#: seconds ``stop`` waits for each of the master's threads
 JOIN_TIMEOUT_S = 5.0
+#: the pipeline thread's poll when nothing wakes it
+PIPELINE_POLL_S = 0.5
+#: default of ``tpumr.pipeline.conf.hooks.allowed`` in the port
+HOOKS_ALLOWED_DEFAULT = "tpumr_torch."
+
+_log = logging.getLogger(__name__)
 
 
 class _TrackerInfo:
@@ -88,23 +117,37 @@ class JobMaster:
             conf.get_class("mapred.jobtracker.taskScheduler",
                            HybridQueueScheduler), conf)
         self.scheduler.set_manager(self)
+        #: pipeline id -> its state; guarded by ``_pipe_lock``
+        self.pipelines: "dict[str, PipelineInProgress]" = {}
+        #: ids of the pipelines still running: the only ones the pipeline
+        #: thread walks, and while there are none it is not woken
+        self._running_pipes: "set[str]" = set()
+        self._pipe_lock = threading.Lock()
+        self._next_pipe = 0
+        self._pipe_wake = threading.Event()
         self._server = RpcServer(self, host, port)
         self._stop = threading.Event()
         self._expire_thread = threading.Thread(
             target=self._expire_loop, name="jobmaster-expiry", daemon=True)
+        self._pipe_thread = threading.Thread(
+            target=self._pipeline_loop, name="jobmaster-pipeline",
+            daemon=True)
 
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> "JobMaster":
         self._server.start()
         self._expire_thread.start()
+        self._pipe_thread.start()
         return self
 
     def stop(self) -> None:
         self._stop.set()
+        self._pipe_wake.set()
         self._server.stop()
-        if self._expire_thread.is_alive():
-            self._expire_thread.join(JOIN_TIMEOUT_S)
+        for t in (self._expire_thread, self._pipe_thread):
+            if t.is_alive():
+                t.join(JOIN_TIMEOUT_S)
 
     @property
     def address(self) -> tuple[str, int]:
@@ -137,13 +180,25 @@ class JobMaster:
         return PROTOCOL_VERSION
 
     def submit_job(self, conf_dict: dict, splits: list) -> str:
+        return self._submit_job(conf_dict, splits)
+
+    def _submit_job(self, conf_dict: dict, splits: list,
+                    pipeline: "PipelineInProgress | None" = None) -> str:
         with self.lock:
             self._next_job += 1
             job_id = JobID(self.cluster_id, self._next_job)
         jip = JobInProgress(job_id, conf_dict, splits)
+        if pipeline is not None:
+            # every stage of a pipeline sorts at the pipeline's submission
+            jip.sched_anchor = pipeline.start_time
         with self.lock:
             self.jobs[str(job_id)] = jip
         return str(job_id)
+
+    def list_jobs(self) -> "list[str]":
+        """Every job id the master knows, in order."""
+        with self.lock:
+            return sorted(self.jobs)
 
     def _job(self, job_id: str) -> JobInProgress:
         jip = self.jobs.get(job_id)
@@ -237,6 +292,8 @@ class JobMaster:
                     jip.state = JobState.FAILED
         finally:
             jip.finalized.set()
+            if self._running_pipes:
+                self._pipe_wake.set()   # a stage may be due now
 
     # ------------------------------------------------------------ heartbeat
 
@@ -303,6 +360,10 @@ class JobMaster:
                                     "task": task.to_dict()})
             response_id += 1
             self._last_response[name] = (response_id, actions)
+            if self._running_pipes:
+                # stage submission never runs on a heartbeat's thread:
+                # the pipeline thread picks the folds up
+                self._pipe_wake.set()
             return {"response_id": response_id, "actions": actions}
 
     def _fold_statuses(self, info: _TrackerInfo, status: dict,
@@ -347,6 +408,9 @@ class JobMaster:
                           if e["shuffle_addr"] == addr
                           and e.get("status") != "OBSOLETE"]
             jip.requeue_lost_attempts(attempts + served)
+            # its handoff copies die with it: readers fall back to the
+            # committed part files
+            jip.withdraw_handoff_at(addr)
         for aid in attempts:
             self._revoke_commit(str(TaskAttemptID.parse(aid).task), aid)
 
@@ -362,3 +426,211 @@ class JobMaster:
                                             None)
             for info in lost:
                 self._requeue_tracker_work(info)
+
+    # ------------------------------------------------------------ pipelines
+
+    def submit_pipeline(self, graph_dict: dict) -> str:
+        """Admit a validated graph whole and submit its source stages;
+        every later stage is submitted here too, so a chain costs its
+        client one call."""
+        graph = JobGraph.from_dict(dict(graph_dict or {}))
+        graph.validate()   # again: the client's check is not trusted
+        # a conf hook runs in this process, so only the operator's
+        # prefixes may name one
+        allowed = [p.strip() for p in str(
+            self.conf.get("tpumr.pipeline.conf.hooks.allowed")
+            or HOOKS_ALLOWED_DEFAULT).split(",") if p.strip()]
+        for nid, n in graph.nodes.items():
+            hook = n.get("conf_hook")
+            if hook and not any(str(hook).startswith(p) for p in allowed):
+                raise PermissionError(
+                    f"node {nid!r}: conf_hook {hook!r} is not under an "
+                    f"allowed prefix ({', '.join(allowed)}); hooks run in "
+                    f"the master: extend tpumr.pipeline.conf.hooks.allowed "
+                    f"to admit it")
+        with self._pipe_lock:
+            self._next_pipe += 1
+            pid = f"pipe_{self.cluster_id}_{self._next_pipe:04d}"
+            pip = self.pipelines[pid] = PipelineInProgress(pid, graph)
+            self._running_pipes.add(pid)
+        self._advance_pipeline(pip)
+        return pid
+
+    def _pipeline(self, pipeline_id: str) -> PipelineInProgress:
+        pip = self.pipelines.get(pipeline_id)
+        if pip is None:
+            raise KeyError(f"unknown pipeline {pipeline_id}")
+        return pip
+
+    def get_pipeline_status(self, pipeline_id: str) -> dict:
+        pip = self._pipeline(pipeline_id)
+        with self._pipe_lock:
+            return pip.status_dict()
+
+    def list_pipelines(self) -> "list[dict]":
+        with self._pipe_lock:
+            return [self.pipelines[pid].status_dict()
+                    for pid in sorted(self.pipelines)]
+
+    def kill_pipeline(self, pipeline_id: str) -> bool:
+        """Kill the pipeline and its running stage jobs; False when it had
+        already ended."""
+        pip = self._pipeline(pipeline_id)
+        with self._pipe_lock:
+            was_terminal = pip.state in PipelineState.TERMINAL
+            victims = pip.kill()
+        self._kill_jobs(victims)
+        self._finish_pipeline(pip)
+        return not was_terminal
+
+    def get_handoff_completion_events(self, job_id: str,
+                                      from_index: int = 0,
+                                      max_events: int = 10_000) -> list:
+        """A streaming stage's committed-partition announcements, read by
+        cursor like the map-completion events."""
+        events, _pending = self._job(job_id).handoff_events.read(
+            int(from_index), int(max_events))
+        return [dict(e) for e in events]
+
+    def handoff_purgeable(self, job_id: str) -> bool:
+        """May a runner drop its handoff copies of ``job_id``? Only once
+        the job ended and its pipeline, if any, ended too: a finished stage
+        serves its pipeline's later stages. An unknown job is purgeable."""
+        jip = self.jobs.get(job_id)
+        if jip is None:
+            return True
+        if jip.state not in JobState.TERMINAL:
+            return False
+        pip = self.pipelines.get(str(jip.conf.get("tpumr.pipeline.id")
+                                     or ""))
+        return pip is None or pip.state in PipelineState.TERMINAL
+
+    def _kill_jobs(self, job_ids: "list[str]") -> None:
+        for jid in job_ids:
+            jip = self.jobs.get(jid)
+            if jip is not None and jip.kill():
+                self._finalize_job(jip)
+
+    def _pipeline_loop(self) -> None:
+        """The one thread that advances pipelines, so that a stage's
+        submission (conf hooks, split listing) never holds up a
+        heartbeat."""
+        while not self._stop.is_set():
+            self._pipe_wake.wait(PIPELINE_POLL_S)
+            self._pipe_wake.clear()
+            if self._stop.is_set():
+                return
+            with self._pipe_lock:
+                running = [self.pipelines[pid]
+                           for pid in sorted(self._running_pipes)]
+            for pip in running:
+                if pip.state != PipelineState.RUNNING:
+                    continue
+                try:
+                    self._advance_pipeline(pip)
+                except Exception as e:  # noqa: BLE001 — the thread must
+                    # go on for the other pipelines; this one fails with it
+                    _log.exception("advancing %s failed", pip.pipeline_id)
+                    with self._pipe_lock:
+                        pip.fail(f"advance failed: {type(e).__name__}: {e}")
+                    self._finish_pipeline(pip)
+
+    def _advance_pipeline(self, pip: PipelineInProgress) -> None:
+        # bounded: each pass submits stages or stops; a loop node moves
+        # one round a pass
+        for _ in range(len(pip.nodes) * 4 + 8):
+            with self._pipe_lock:
+                plans = pip.plan_locked(self)
+            if not plans:
+                break
+            for nid, rnd in plans:
+                self._submit_stage(pip, nid, rnd)
+        if pip.state in PipelineState.TERMINAL:
+            self._finish_pipeline(pip)
+
+    def _finish_pipeline(self, pip: PipelineInProgress) -> None:
+        """Once: a failed pipeline kills its stages still running, since
+        half a diamond must not hold slots for a join that cannot run."""
+        with self._pipe_lock:
+            if pip.finished_recorded:
+                return
+            pip.finished_recorded = True
+            self._running_pipes.discard(pip.pipeline_id)
+            victims = (pip.settle_running("killed with pipeline")
+                       if pip.state != PipelineState.SUCCEEDED else [])
+        self._kill_jobs(victims)
+
+    def _submit_stage(self, pip: PipelineInProgress, nid: str,
+                      rnd: int) -> None:
+        """Build and submit one stage job, outside the pipeline lock; the
+        node is ``SUBMITTING``, so no other pass submits it. A stage that
+        cannot be submitted fails the pipeline."""
+        node = pip.nodes[nid]
+        graph = pip.graph
+        try:
+            conf = node.round_conf(graph.conf, rnd)
+            conf["tpumr.pipeline.id"] = pip.pipeline_id
+            conf["tpumr.pipeline.node"] = nid
+            conf["tpumr.pipeline.round"] = rnd
+            conf.setdefault("mapred.job.name",
+                            f"{graph.name or pip.pipeline_id}:{nid}"
+                            + (f"@r{rnd}" if node.is_loop else ""))
+            if any(e["stream"] for e in graph.downstreams(nid)):
+                conf["tpumr.pipeline.stream.handoff"] = True
+            ins = graph.upstreams(nid)
+            ups = {e["src"]: pip.nodes[e["src"]] for e in ins}
+            ups_info = {src: {"job_id": up.job_id,
+                              "output_dir": up.output_dir,
+                              "num_reduces": up.num_reduces}
+                        for src, up in ups.items()}
+            splits = None
+            if ins and all(e["stream"] for e in ins):
+                # one map per upstream reduce partition, fetched over the
+                # shuffle wire: the splits are built here, with no listing
+                conf["mapred.input.format.class"] = \
+                    "tpumr_torch.pipeline.handoff.PipelineHandoffInputFormat"
+                conf["tpumr.pipeline.handoff.upstream"] = json.dumps(
+                    sorted(i["job_id"] for i in ups_info.values()))
+                splits = []
+                for src in sorted(ups):
+                    up = ups[src]
+                    splits += [s.to_dict() for s in build_handoff_splits(
+                        up.job_id, up.num_reduces, up.output_dir,
+                        self._handoff_serving(up.job_id))]
+            elif ins and not str(conf.get("mapred.input.dir") or ""):
+                conf["mapred.input.dir"] = ",".join(
+                    ups_info[src]["output_dir"] for src in sorted(ups))
+            hook = node.spec.get("conf_hook")
+            if hook:
+                mod_name, _, attr = str(hook).rpartition(".")
+                getattr(importlib.import_module(mod_name), attr)(conf,
+                                                                 ups_info)
+            if splits is None:
+                # the client's submission step, the one helper both use
+                from tpumr_torch.mapred.job_client import build_submission
+                jc = JobConf()
+                for k, v in conf.items():
+                    jc.set(k, v)
+                conf, splits = build_submission(jc)
+            job_id = self._submit_job(conf, splits, pip)
+            jip = self.jobs[job_id]
+            with self._pipe_lock:
+                accepted = pip.record_submitted(
+                    nid, rnd, job_id, str(conf.get("mapred.output.dir")
+                                          or ""), jip.num_reduces)
+            if not accepted:
+                # the pipeline ended while this submission was in flight
+                self._kill_jobs([job_id])
+        except Exception as e:  # noqa: BLE001 — the pipeline fails with it
+            with self._pipe_lock:
+                pip.record_submit_failed(nid, f"{type(e).__name__}: {e}")
+
+    def _handoff_serving(self, job_id: str) -> "dict[int, str]":
+        """partition -> serving address of an upstream stage's committed
+        handoff copies: the locality hints of the downstream splits."""
+        jip = self.jobs.get(job_id)
+        if jip is None:
+            return {}
+        return {e["map_index"]: e["shuffle_addr"]
+                for e in jip.handoff_events
+                if e.get("status") == "SUCCEEDED"}

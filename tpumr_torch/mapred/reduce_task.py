@@ -19,8 +19,11 @@ reporter)`` is given the collector before the first group, even where
 there is none (``:134-138, 173-175``). A failed attempt aborts its reducer
 and writer where they can abort, so that a partly fed reducer never
 publishes (``KMeansCentroidUpdateReducer`` writes next-round state in
-``close``). The pipeline engine's output tee (``HandoffWriter``,
-``:150-166``) is not ported.
+``close``). A streaming pipeline stage's attempt also tees every emitted
+record into a ``pipeline.handoff.HandoffWriter`` (``:148-166``), which
+the node runner serves to the next stage's maps; a failed attempt aborts
+the tee, and :func:`run_reduce_task` returns what the runner registers for
+serving.
 """
 
 from __future__ import annotations
@@ -34,13 +37,16 @@ from tpumr_torch.mapred.api import IdentityReducer, OutputCollector, Reporter
 from tpumr_torch.mapred.map_task import localize_task_conf
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.task import Task
+from tpumr_torch.pipeline.handoff import HandoffWriter
 from tpumr_torch.utils.reflection import new_instance
 
 
 def run_reduce_task(conf: Any, task: Task, source: Any,
-                    reporter: "Reporter | None" = None) -> None:
+                    reporter: "Reporter | None" = None) -> "dict | None":
     """Execute one reduce attempt over ``source.segments(task.partition)``
-    into the attempt's committer work dir."""
+    into the attempt's committer work dir. Returns the handoff tee's
+    registration (``HandoffWriter.finish``) where the attempt streams its
+    output, else None."""
     reporter = reporter or Reporter()
     conf = localize_task_conf(conf, task)
     sk = conf.get_output_key_comparator().sort_key
@@ -53,7 +59,7 @@ def run_reduce_task(conf: Any, task: Task, source: Any,
             run_dir=conf.get("tpumr.task.local.dir") or None,
             reporter=reporter, prefix=f"reduce-p{task.partition}")
         try:
-            _reduce_merged(conf, task, iter(engine), gk, reporter)
+            return _reduce_merged(conf, task, iter(engine), gk, reporter)
         finally:
             engine.close()
     finally:
@@ -69,19 +75,23 @@ def run_reduce_task(conf: Any, task: Task, source: Any,
 
 def _reduce_merged(conf: Any, task: Task,
                    merged: Iterator[tuple[bytes, bytes]],
-                   gk: Callable[[bytes], Any], reporter: Reporter) -> None:
+                   gk: Callable[[bytes], Any], reporter: Reporter
+                   ) -> "dict | None":
     """Group ``merged`` by ``gk``, reduce and write; commit-ready output in
-    the attempt's work dir."""
+    the attempt's work dir, and the tee's registration where it streams."""
     wd = FileOutputCommitter(conf).setup_task(str(task.attempt_id))
     conf.set("tpumr.task.work.dir", wd)   # before the reducer's configure
     reducer = new_instance(conf.get_reducer_class() or IdentityReducer, conf)
     writer = new_instance(conf.get_output_format(), conf).get_record_writer(
         conf, wd, task.partition)
+    handoff = HandoffWriter.open_for(conf, task)
 
     def emit(k: Any, v: Any) -> None:
         reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
                               TaskCounter.REDUCE_OUTPUT_RECORDS)
         writer.write(k, v)
+        if handoff is not None:
+            handoff.append(k, v)
 
     collector = OutputCollector(emit)
     ok = False
@@ -105,6 +115,9 @@ def _reduce_merged(conf: Any, task: Task,
         (r_abort or reducer.close)()
         w_abort = None if ok else getattr(writer, "abort", None)
         (w_abort or writer.close)()
+        if handoff is not None and not ok:
+            handoff.abort()   # a failed attempt's tee must not linger
+    return handoff.finish(task.partition) if handoff is not None else None
 
 
 def group_by_key(stream: Iterator[tuple[bytes, bytes]],

@@ -21,7 +21,8 @@ there) runs:
 
 A node runner that reports ``available_memory_mb`` only receives tasks
 whose declared memory fits. Jobs are offered slots in priority, then
-submission order.
+submission order, a pipeline's stage jobs at the pipeline's submission
+(``:98-106``).
 
 Left out (``ROADMAP.md``): devcache-affinity deferral, the FIFO-order
 cache, scheduler metrics, and the demotion floor of CPU-pinned maps (the
@@ -73,9 +74,12 @@ def _free_tpu_devices(tracker_status: dict) -> "list[int]":
 
 
 def _priority_fifo(jobs: "list[JobInProgress]") -> "list[JobInProgress]":
-    """Priority first, then submission time, then job id."""
+    """Priority first, then the job's ``sched_anchor`` (its submit time, or
+    its pipeline's for a stage job, so that a chain's late stages keep the
+    chain's place in the queue), then submission time, then job id."""
     return sorted(jobs, key=lambda j: (priority_rank(j.priority),
-                                       j.start_time, str(j.job_id)))
+                                       j.sched_anchor, j.start_time,
+                                       str(j.job_id)))
 
 
 class HybridQueueScheduler(TaskScheduler):

@@ -8,11 +8,13 @@ map's process one :class:`DiskSegment` per map over the map's own file
 it, chunk by chunk, through the codec's decompressor.
 :class:`RemoteSegmentSource` polls the master's map-completion events
 (``JobMaster.get_map_completion_events``) by cursor until every map of the
-job has a live (not ``OBSOLETE``) event, takes each map's serving address
-from it, fetches the reduce's partition with the serving runner's
-``get_map_output`` and parses the bytes by the codec it names
-(``io/ifile.iter_transferred_segment``). ``reduce_task.run_reduce_task``
-merges either source's segments the same way.
+job has a live (not ``OBSOLETE``) event (:class:`EventFold`), takes each
+map's serving address from it, fetches the reduce's partition with the
+serving runner's ``get_map_output`` and parses the bytes by the codec it
+names (:func:`fetch_segment`). ``reduce_task.run_reduce_task`` merges
+either source's segments the same way. The streamed stage handoff
+(``pipeline/handoff``) locates and fetches its partitions with the same
+two helpers.
 
 Left out (``ROADMAP.md``): the RAM-budgeted parallel copier and its memory
 segments, the merge manager and its disk spills, chunked and pipelined
@@ -88,6 +90,48 @@ class TaskKilledError(RuntimeError):
     """The attempt was told to stop while it waited."""
 
 
+class EventFold:
+    """A completion feed of the master folded by cursor into index ->
+    serving address. The feed is the map-completion dialect, which the
+    streamed handoff's feed shares (``map_index`` holds its partition): an
+    event announces the index's copy at ``shuffle_addr``, and an
+    ``OBSOLETE`` event withdraws that copy. ``events_fn(cursor)`` returns
+    the events from ``cursor``. Not thread-safe: a shared fold is polled
+    under its owner's lock."""
+
+    def __init__(self, events_fn: Callable[[int], "list[dict]"]) -> None:
+        self._events_fn = events_fn
+        self._cursor = 0
+        #: index -> address of the runner serving it
+        self.addr: "dict[int, str]" = {}
+
+    def poll(self) -> "set[int]":
+        """Fold the events past the cursor; return the indexes that had a
+        copy withdrawn."""
+        events = self._events_fn(self._cursor)
+        self._cursor += len(events)
+        withdrawn: "set[int]" = set()
+        for e in events:
+            m = int(e["map_index"])
+            if e.get("status") == "OBSOLETE":
+                if self.addr.get(m) == e.get("shuffle_addr"):
+                    del self.addr[m]
+                withdrawn.add(m)
+            else:
+                self.addr[m] = str(e["shuffle_addr"])
+        return withdrawn
+
+
+def fetch_segment(client: RpcClient, serve_key: str, index: int,
+                  partition: int) -> Iterator[tuple[bytes, bytes]]:
+    """One partition of an output that a runner serves under
+    ``serve_key`` (a job id, or a handoff key), fetched whole with
+    ``get_map_output`` and parsed by the codec it names."""
+    got = client.call("get_map_output", serve_key, index, partition)
+    return ifile.iter_transferred_segment(got["data"],
+                                          got.get("codec", "none"))
+
+
 class RemoteSegmentSource:
     """``segments(partition)``: one record iterator per map of the job, in
     map order. ``events_fn(cursor)`` returns the master's completion
@@ -100,39 +144,25 @@ class RemoteSegmentSource:
                  abort_check: "Callable[[], bool] | None" = None) -> None:
         self.job_id = job_id
         self.num_maps = num_maps
-        self._events_fn = events_fn
         self.poll_s = poll_s
         self.timeout_s = timeout_s
         self._abort_check = abort_check or (lambda: False)
-        self._cursor = 0
-        #: map index -> address of the runner serving its output
-        self._addr: "dict[int, str]" = {}
-
-    def _fold(self, events: "list[dict]") -> None:
-        for e in events:
-            m = int(e["map_index"])
-            if e.get("status") == "OBSOLETE":
-                if self._addr.get(m) == e.get("shuffle_addr"):
-                    del self._addr[m]
-            else:
-                self._addr[m] = str(e["shuffle_addr"])
+        self._fold = EventFold(events_fn)
 
     def locations(self) -> "dict[int, str]":
         """Wait until every map has a serving address; return them."""
         deadline = time.monotonic() + self.timeout_s
         while True:
-            events = self._events_fn(self._cursor)
-            self._cursor += len(events)
-            self._fold(events)
-            if len(self._addr) >= self.num_maps:
-                return dict(self._addr)
+            self._fold.poll()
+            if len(self._fold.addr) >= self.num_maps:
+                return dict(self._fold.addr)
             if self._abort_check():
                 raise TaskKilledError(f"reduce of {self.job_id} stopped "
                                       "while waiting for map outputs")
             if time.monotonic() > deadline:
                 raise TimeoutError(
-                    f"{self.job_id}: {self.num_maps - len(self._addr)} map "
-                    f"outputs not available after {self.timeout_s}s")
+                    f"{self.job_id}: {self.num_maps - len(self._fold.addr)}"
+                    f" map outputs not available after {self.timeout_s}s")
             time.sleep(self.poll_s)
 
     def segments(self, partition: int
@@ -147,9 +177,7 @@ class RemoteSegmentSource:
                 if cli is None:
                     host, port = addr.rsplit(":", 1)
                     cli = clients[addr] = RpcClient(host, int(port))
-                got = cli.call("get_map_output", self.job_id, m, partition)
-                out.append(ifile.iter_transferred_segment(
-                    got["data"], got.get("codec", "none")))
+                out.append(fetch_segment(cli, self.job_id, m, partition))
         finally:
             for cli in clients.values():
                 cli.close()

@@ -29,7 +29,15 @@ Counterpart of ``NodeRunner`` in ``tpumr/mapred/tasktracker.py``:
 - :meth:`NodeRunner.get_map_output` (``:2139-2162``): one partition's bytes
   of a map's IFile, served over RPC with the codec of the map output, by
   which the reduce decodes them; a reduce's merge runs go under
-  ``tpumr.task.local.dir``, the job's ``shuffle`` directory (``:1364``).
+  ``tpumr.task.local.dir``, the job's ``shuffle`` directory (``:1364``);
+- the pipeline handoff: a streaming stage's reduces tee their output under
+  the runner's ``handoff`` directory, outside the job's scratch tree
+  (``:1371-1391``); only the attempt that won the commit registers its tee
+  for serving, under ``handoff:<job>`` (``:1615-1657``); a downstream
+  stage's maps get :meth:`NodeRunner._handoff_source` through the conf
+  (``:2247``); every ``PURGE_EVERY_BEATS`` heartbeats the runner drops the
+  handoff entries whose pipeline has ended, as the master's
+  ``handoff_purgeable`` says (``:1147-1177``).
 
 The node decides its device: ``tpumr_torch.device`` of the runner's conf,
 ``cuda`` by default, is set on every job conf it runs, so a job cannot move
@@ -42,7 +50,7 @@ accelerator-slot maps take the kernels' plain torch versions.
 Left out (``ROADMAP.md``): process isolation, the hung-task reaper,
 userlogs, profiles, fault injection, device health and quarantine,
 chunked and batched map-output serving, dense serving for device-shuffled
-jobs, pipeline handoff, cooperative cancellation inside a running map
+jobs, cooperative cancellation inside a running map
 (a killed attempt is reported KILLED when it ends), the lost-master
 backoff and the heartbeat delta encoding.
 """
@@ -69,9 +77,13 @@ from tpumr_torch.mapred.reduce_task import run_reduce_task
 from tpumr_torch.mapred.shuffle_copier import (RemoteSegmentSource,
                                                TaskKilledError)
 from tpumr_torch.mapred.task import Task, TaskPhase, TaskState, TaskStatus
+from tpumr_torch.pipeline.handoff import (SERVE_PREFIX, HandoffSource,
+                                          serve_key)
 
 #: seconds ``stop`` waits for each of the runner's threads
 JOIN_TIMEOUT_S = 10.0
+#: heartbeats between two sweeps of the handoff entries
+PURGE_EVERY_BEATS = 20
 
 _log = logging.getLogger(__name__)
 
@@ -133,6 +145,9 @@ class NodeRunner:
         self._tpu_sem = threading.Semaphore(max(1, self.max_tpu_map_slots))
         self._red_sem = threading.Semaphore(max(1, self.max_reduce_slots))
         self._task_threads: "set[threading.Thread]" = set()
+        #: upstream job -> the stream source its downstream maps share
+        self._handoff_sources: "dict[str, HandoffSource]" = {}
+        self._beats = 0
         self._server = RpcServer(self, "127.0.0.1", 0)
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, name=f"heartbeat-{self.name}",
@@ -249,6 +264,30 @@ class NodeRunner:
                     self._kill_requested.discard(sd["attempt_id"])
         for action in resp["actions"]:
             self._apply_action(action)
+        self._beats += 1
+        if self._beats % PURGE_EVERY_BEATS == 0:
+            self._purge_handoffs()
+
+    def _purge_handoffs(self) -> None:
+        """Drop the served handoff copies of every upstream job whose
+        pipeline has ended. A finished stage keeps serving while its
+        pipeline runs, so the job's own cleanup leaves them."""
+        with self.lock:
+            keys = {k[0] for k in self.map_outputs
+                    if k[0].startswith(SERVE_PREFIX)}
+        for key in keys:
+            job_id = key[len(SERVE_PREFIX):]
+            try:
+                if not self.master.call("handoff_purgeable", job_id):
+                    continue
+            except Exception:  # noqa: BLE001 — the master is briefly away:
+                continue       # keep serving, ask at the next sweep
+            with self.lock:
+                for k in [k for k in self.map_outputs if k[0] == key]:
+                    del self.map_outputs[k]
+                self._handoff_sources.pop(job_id, None)
+            shutil.rmtree(os.path.join(self.local_root, "handoff", job_id),
+                          ignore_errors=True)
 
     def _apply_action(self, action: dict) -> None:
         kind = action.get("type")
@@ -281,6 +320,13 @@ class NodeRunner:
             # the job's cleanup removes any left behind
             jc.set("tpumr.task.local.dir",
                    os.path.join(self.local_root, job_id, "shuffle"))
+            if jc.get_boolean("tpumr.pipeline.stream.handoff", False):
+                # the tee outlives the job's cleanup: downstream stages
+                # read it after the job ended, until the pipeline ends
+                jc.set("tpumr.pipeline.handoff.dir",
+                       os.path.join(self.local_root, "handoff", job_id))
+            if jc.get("tpumr.pipeline.handoff.upstream"):
+                jc.set("tpumr.pipeline.handoff.source", self._handoff_source)
             with self.lock:
                 jc = self.job_confs.setdefault(job_id, jc)
         return jc
@@ -328,6 +374,7 @@ class NodeRunner:
         try:
             conf = self._job_conf(job_id)
             local_dir = os.path.join(self.local_root, job_id, aid)
+            handoff = None
             if task.is_map:
                 path, index = run_map_task(conf, task, local_dir, reporter)
                 if path:
@@ -344,9 +391,11 @@ class NodeRunner:
                     timeout_s=conf.get_int("tpumr.shuffle.timeout.ms",
                                            600_000) / 1000.0,
                     abort_check=lambda: self._killed(aid))
-                run_reduce_task(conf, task, source, reporter)
+                handoff = run_reduce_task(conf, task, source, reporter)
                 status.phase = TaskPhase.REDUCE
             committed = self._commit(conf, task)
+            if handoff is not None:
+                self._register_handoff(job_id, task, handoff, committed)
             with self.lock:
                 status.counters = reporter.counters.to_dict()
                 status.progress = 1.0
@@ -369,6 +418,36 @@ class NodeRunner:
                                       + traceback.format_exc(limit=8))
                 status.finish_time = time.time()
                 status.state = TaskState.FAILED
+
+    def _register_handoff(self, job_id: str, task: Task, handoff: dict,
+                          committed: bool) -> None:
+        """Serve the tee of the attempt that won the commit; a loser's tee
+        is deleted (nothing would serve or purge it)."""
+        if not committed:
+            try:
+                os.unlink(handoff["path"])
+            except OSError:
+                pass
+            return
+        with self.lock:
+            self.map_outputs[(serve_key(job_id), task.partition)] = \
+                (handoff["path"], handoff["index"])
+
+    def _handoff_source(self, upstream_job: str) -> HandoffSource:
+        """The stream source of one upstream job, shared by every map of
+        the downstream stage on this runner: the master's handoff feed,
+        folded by one cursor."""
+        with self.lock:
+            src = self._handoff_sources.get(upstream_job)
+            if src is None:
+                src = self._handoff_sources[upstream_job] = HandoffSource(
+                    upstream_job,
+                    lambda cursor: self.master.call(
+                        "get_handoff_completion_events", upstream_job,
+                        cursor),
+                    poll_s=self.conf.get_int("tpumr.shuffle.poll.ms",
+                                             200) / 1000.0)
+            return src
 
     def _commit(self, conf: JobConf, task: Task) -> bool:
         """Promote the attempt's output files, if it wrote any, when the

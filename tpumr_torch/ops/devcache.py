@@ -2,7 +2,8 @@
 
 Counterpart of ``tpumr/ops/devcache.py``. Every map task of a job reads the
 same side input (the K-Means centroids, the matmul B); it is uploaded once
-per (tag, device) and served from device memory after. Keyed by
+per (tag, device) and served from device memory after, as long as its
+file's length and mtime stay those it was uploaded from. Keyed by
 ``(tag, str(torch device))`` where the JAX package keyed by
 ``jax.config.jax_default_device``. One byte-budgeted
 :class:`~tpumr_torch.mapred.gpu_runner.DeviceSplitCache`
@@ -31,18 +32,31 @@ def _cache_for(conf: Any):
         return _cache
 
 
+def file_stamp(conf: Any, path: str) -> tuple:
+    """A file's (length, mtime): the freshness half of a side input's cache
+    entry, as the split cache keys staged splits (``gpu_runner``), so that
+    a rewritten file is read anew, also by a runner in another process."""
+    from tpumr_torch.fs.filesystem import FileSystem
+    st = FileSystem.get(path, conf).get_status(path)
+    return (st.length, st.mtime)
+
+
 def device_cached(tag: str, device: torch.device,
                   upload: Callable[[], torch.Tensor],
-                  conf: Any = None) -> torch.Tensor:
+                  conf: Any = None, *, stamp: tuple) -> torch.Tensor:
     """The tensor cached under ``(tag, device)``; on a miss, ``upload()``
-    makes it (the one host-to-device copy) and the cache keeps it."""
+    makes it (the one host-to-device copy) and the cache keeps it.
+    ``stamp`` (the source file's length and mtime) is kept beside the
+    tensor: an entry whose stamp differs is stale, and is replaced."""
     key = (tag, str(device))
     cache = _cache_for(conf)
     hit = cache.get(key)
     if hit is not None:
-        return hit
+        if hit[0] == stamp:
+            return hit[1]
+        cache.drop_where(lambda k: k == key)
     t = upload()
-    cache.put(key, t, t.numel() * t.element_size())
+    cache.put(key, (stamp, t), t.numel() * t.element_size())
     return t
 
 

@@ -381,32 +381,41 @@ centroids_from_numpy.uploads = 0
 # ----------------------------------------------------------------- mapper
 
 
-_centroid_cache: dict[str, np.ndarray] = {}
+#: path -> ((length, mtime) of the file read, centroids)
+_centroid_cache: "dict[str, tuple[tuple, np.ndarray]]" = {}
 
 #: host-cache bound: one k×d array per centroid file
 _CENTROID_CACHE_CAP = 8
 
 
-def _load_centroids(conf: Any) -> np.ndarray:
-    from tpumr_torch.fs.filesystem import FileSystem
-    from tpumr_torch.mapred.input_formats import load_dense
+def _centroid_file(conf: Any) -> tuple[str, tuple]:
+    from tpumr_torch.ops.devcache import file_stamp
     path = conf.get("tpumr.kmeans.centroids")
     if not path:
         raise ValueError("tpumr.kmeans.centroids not set (path to .npy)")
+    return path, file_stamp(conf, path)
+
+
+def _load_centroids(conf: Any) -> np.ndarray:
+    from tpumr_torch.fs.filesystem import FileSystem
+    from tpumr_torch.mapred.input_formats import load_dense
+    path, stamp = _centroid_file(conf)
     cached = _centroid_cache.get(path)
-    if cached is None:
+    if cached is None or cached[0] != stamp:
+        _centroid_cache.pop(path, None)
         while len(_centroid_cache) >= _CENTROID_CACHE_CAP:
             _centroid_cache.pop(next(iter(_centroid_cache)))
-        cached = _centroid_cache[path] = load_dense(
-            FileSystem.get(path, conf), path).astype(np.float32)
-    return cached
+        cached = _centroid_cache[path] = (stamp, load_dense(
+            FileSystem.get(path, conf), path).astype(np.float32))
+    return cached[1]
 
 
 def clear_centroid_cache() -> None:
-    """Drop the host and device copies of every centroid file: call it
-    between independent jobs that rewrite one centroid file. Rounds that
-    version their centroid path (``cents-r{round}.npy``) need no clear
-    between rounds: call :func:`clear_pipeline_caches` once at the end."""
+    """Drop the host and device copies of every centroid file, to free
+    them: a rewritten file is read anew without a clear, since both caches
+    check its length and mtime. Rounds that version their centroid path
+    (``cents-r{round}.npy``) call :func:`clear_pipeline_caches` once at
+    the end."""
     from tpumr_torch.ops.devcache import clear_device_cache
     _centroid_cache.clear()
     clear_device_cache("kmeans-centroids:")
@@ -423,15 +432,15 @@ def clear_pipeline_caches() -> None:
 
 
 def _device_centroids(conf: Any, device: torch.device) -> torch.Tensor:
-    """The centroids on ``device``, uploaded once per (file, device). A hit
-    (a pre-seeded round included) reads no file."""
+    """The centroids on ``device``, uploaded once per (file, device) while
+    the file's length and mtime stay the same. A hit (a pre-seeded round
+    included) reads no more than the file's status."""
     from tpumr_torch.ops.devcache import device_cached
-    path = conf.get("tpumr.kmeans.centroids")
-    if not path:
-        raise ValueError("tpumr.kmeans.centroids not set (path to .npy)")
+    path, stamp = _centroid_file(conf)
     return device_cached(
         f"kmeans-centroids:{path}", device,
-        lambda: centroids_from_numpy(_load_centroids(conf), device), conf)
+        lambda: centroids_from_numpy(_load_centroids(conf), device), conf,
+        stamp=stamp)
 
 
 def assign_and_partials_numpy(points: np.ndarray, centroids: np.ndarray,
@@ -570,13 +579,17 @@ class KMeansCentroidUpdateReducer(Reducer):
         if self._reporter is not None:
             self._reporter.incr_counter(SHIFT_COUNTER_GROUP, SHIFT_COUNTER,
                                         int(round(shift * 1000)))
+        if not fs.exists(out_path):
+            return   # a refused rename left no file to pre-seed for
         # the pre-seed, on the device the maps run on (their lookup key is
-        # (tag, str(points.device)), "cuda:0" on the card): a failure here
-        # is a fault on the device and fails the attempt
-        from tpumr_torch.ops.devcache import device_cached
+        # (tag, str(points.device)), "cuda:0" on the card), stamped with
+        # the file's length and mtime as the maps will find them: a failure
+        # here is a fault on the device and fails the attempt
+        from tpumr_torch.ops.devcache import device_cached, file_stamp
         device = select_device(conf, 0)
         device_cached(f"kmeans-centroids:{out_path}", device,
-                      lambda: self._preseed(new, device), conf)
+                      lambda: self._preseed(new, device), conf,
+                      stamp=file_stamp(conf, out_path))
 
     @staticmethod
     def _preseed(new: np.ndarray, device: torch.device) -> torch.Tensor:

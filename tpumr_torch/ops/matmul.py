@@ -3,9 +3,10 @@
 Counterpart of ``tpumr/ops/matmul.py`` (BASELINE.json config 4). Each map
 task owns a row block of A (its dense split) and computes
 ``C_block = A_block @ B``, with B a side file uploaded once per device
-(``ops/devcache``, tag ``matmul-b:``). The product is one plain large
-matrix product: the JAX package hands it to XLA outside any Pallas kernel,
-and the port hands it to torch (cuBLAS on the card). The job writes C
+(``ops/devcache``, tag ``matmul-b:``) while the file stays unchanged. The
+product is one plain large matrix product: the JAX package hands it to XLA
+outside any Pallas kernel, and the port hands it to torch (cuBLAS on the
+card). The job writes C
 through ``DenseNpyOutputFormat``, and the kernel offers C for the output
 chain (:meth:`MatmulBlockKernel.device_output_rows`), so a job that reads
 C next finds it on the card.
@@ -22,36 +23,47 @@ from tpumr_torch.device import full_f32_products
 from tpumr_torch.mapred.api import Mapper
 from tpumr_torch.ops.registry import KernelMapper, register_kernel
 
-_b_cache: dict[str, np.ndarray] = {}
+#: path -> ((length, mtime) of the file read, B)
+_b_cache: "dict[str, tuple[tuple, np.ndarray]]" = {}
+
+
+def _b_file(conf: Any) -> tuple[str, tuple]:
+    from tpumr_torch.ops.devcache import file_stamp
+    path = conf.get("tpumr.matmul.b")
+    if not path:
+        raise ValueError("tpumr.matmul.b not set (path to .npy of B)")
+    return path, file_stamp(conf, path)
 
 
 def _load_b(conf: Any) -> np.ndarray:
     from tpumr_torch.fs.filesystem import FileSystem
     from tpumr_torch.mapred.input_formats import load_dense
-    path = conf.get("tpumr.matmul.b")
-    if not path:
-        raise ValueError("tpumr.matmul.b not set (path to .npy of B)")
+    path, stamp = _b_file(conf)
     cached = _b_cache.get(path)
-    if cached is None:
-        cached = _b_cache[path] = load_dense(FileSystem.get(path, conf), path)
-    return cached
+    if cached is None or cached[0] != stamp:
+        cached = _b_cache[path] = (
+            stamp, load_dense(FileSystem.get(path, conf), path))
+    return cached[1]
 
 
 def clear_b_cache() -> None:
-    """Drop the host and device copies of every B: call it between
-    independent matmul jobs that rewrite one B file."""
+    """Drop the host and device copies of every B, to free them: a
+    rewritten B is read anew without a clear, since both caches check its
+    length and mtime."""
     from tpumr_torch.ops.devcache import clear_device_cache
     _b_cache.clear()
     clear_device_cache("matmul-b:")
 
 
 def _device_b(conf: Any, device: torch.device) -> torch.Tensor:
-    """B on ``device``, uploaded once per (file, device)."""
+    """B on ``device``, uploaded once per (file, device) while the file's
+    length and mtime stay the same."""
     from tpumr_torch.ops.devcache import device_cached
+    path, stamp = _b_file(conf)
     return device_cached(
-        f"matmul-b:{conf.get('tpumr.matmul.b')}", device,
+        f"matmul-b:{path}", device,
         lambda: torch.from_numpy(np.array(_load_b(conf), order="C"))
-        .to(device), conf)
+        .to(device), conf, stamp=stamp)
 
 
 def block_matmul(a: torch.Tensor, b: torch.Tensor, bf16: bool = True
