@@ -58,7 +58,12 @@ SIGTERM. Then TeraSort's chain (teragen, sort with the partition sampling
 in the master's hook, validate) as one pipeline at 1,000,000 records on a
 cluster of CPU slots, with a dfs and with a stream edge into validate: the
 same sorted records, the input's count and checksum, an empty validate
-output, and both validate splits streamed. Matmul: the map-only blocked
+output, and both validate splits streamed. On the pipeline's cluster, the
+first part of the cluster_shuffle phase: one K-Means round clean and one
+with every map's first output unfetchable
+(tpumr.fi.shuffle.serve.a0.probability=1), which must give byte-identical
+centroids with every map re-executed once on the GPU slot (8 and 16
+kmeans_assign_partials launches) and the reduce on its first attempt. Matmul: the map-only blocked
 product of two 4,096 x 4,096 f32 matrices (4 maps) in f32 and in bf16 with
 f32 output, each against a float64 product, and a chain job D = C @ B that
 reads C from the card (0 bytes staged).
@@ -85,16 +90,29 @@ decrease across its parts in order; and secondarysort and join (inner and
 outer) through python -m tpumr_torch.cli, each in a process of its own,
 against oracles computed here. TeraSort
 (BASELINE config 5, 10 GB): teragen of 100,000,000 records (16 maps), the
-device-shuffled terasort (4 ranges) cold then warm, each printing its
-stage seconds, peak host and card memory and counters (TPU_SHUFFLE_RECORDS
-must be 10^8, DEVICE_SORT_ON_ACCEL 1); the card's sort of all 10^8 keys
-held to a stable order (a permutation, keys non-decreasing, equal keys in
-input order) and, on the first 10^7, to np.lexsort; teravalidate on the
-output, and the record count and an order-independent checksum of the
-output equal to the input's; then bench.py's 2,000,000 records through the
-host shuffle and the device shuffle (the same records, part for part), and
-teragen, terasort --device-shuffle and teravalidate through python -m
-tpumr_torch.cli at 1,000,000 records, each in a process of its own. It
+device-shuffled terasort (4 ranges), printing its stage seconds, peak
+host and card memory and counters (TPU_SHUFFLE_RECORDS must be 10^8,
+DEVICE_SORT_ON_ACCEL 1); the card's sort of all 10^8 keys held to a
+stable order (a permutation, keys non-decreasing, equal keys in input
+order) and, on the first 10^7, to np.lexsort; teravalidate on the output,
+and the record count and an order-independent checksum of the output
+equal to the input's; the same job on a MiniMRCluster of 4 CPU slots, 1
+GPU slot and 1 reduce slot, sent through job_client.run_job, its gang
+reduce fetching every map's dense output over RPC (the cluster_shuffle
+phase's second part: the local run's part counts, the input's checksum,
+teravalidate, one device argsort); then bench.py's 2,000,000 records
+through the host shuffle and the device shuffle (the same records, part
+for part), teragen, terasort --device-shuffle and teravalidate through
+python -m tpumr_torch.cli at 1,000,000 records, each in a process of its
+own, and last that CLI input sorted by the host shuffle on the cluster
+(part for part the CLI's output) and 200,000 records with every shuffle
+segment on disk and merged in the background (part for part the local
+run's). The steps that run in processes of their own run beside this
+process's work, and their times and those of the work beside them are
+taken under that load: teragen of 10^8 beside the text and spill phases,
+the daemons beside the pipeline's TeraSort chain, the CLI's pi beside
+wordcount and grep, secondarysort and join beside the spill jobs, and the
+CLI's TeraSort programs beside the shuffles at 2,000,000. It
 prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -229,8 +247,42 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+#: one line at a time from the main thread and a Beside thread
+_LOG_LOCK = threading.Lock()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    with _LOG_LOCK:
+        print(msg, flush=True)
+
+
+class Beside:
+    """``fn(*args)`` in a thread of its own, beside the caller's work: for
+    steps that wait on processes of their own and so hold the interpreter
+    lock little. :meth:`join` waits for it and returns its result, or
+    raises what it raised (a failed ``check`` too). Join it in a
+    ``finally``, so that the processes it started end with it."""
+
+    def __init__(self, fn, *args) -> None:
+        self._out: dict = {}
+
+        def run() -> None:
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:  # noqa: BLE001 — raised at join()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name=f"beside-{fn.__name__}")
+        self._thread.start()
+
+    def join(self, timeout: float = 1800) -> object:
+        self._thread.join(timeout)
+        check(not self._thread.is_alive(),
+              f"{self._thread.name}: no end in {timeout} s")
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1527,18 +1579,25 @@ def pipeline_phase(km, n: int, tera_rows: int) -> dict:
         with MiniMRCluster(num_trackers=1, cpu_slots=0, tpu_slots=1,
                            conf=JobConf()) as c:
             loop = pipeline_loop(c, work, n, km)
+            # cluster_shuffle (c), on this cluster and its points
+            lost = lost_output_rounds(c, work, n, km)
         km.clear_pipeline_caches()
         gpu_runner.clear_split_caches()
-        cli = pipeline_cli(work, km)
-        tera = pipeline_terasort(work, tera_rows)
+        # (b)'s daemons and programs, processes of their own, beside (c)
+        beside = Beside(pipeline_cli, work, km)
+        try:
+            tera = pipeline_terasort(work, tera_rows)
+        finally:
+            cli = beside.join()
         check(not [th.name for th in threading.enumerate()
                    if th.name.startswith(("heartbeat-", "task-",
                                           "rpc-server", "jobmaster-"))],
               "a pipeline cluster left threads running")
-        secs = time.monotonic() - t_phase
+        # the phase's seconds as before cluster_shuffle (c) joined it
+        secs = time.monotonic() - t_phase - lost["seconds"]
         log("pipeline_phase " + json.dumps({"seconds": secs}))
         return {"loop": loop, "cli": cli, "terasort": tera,
-                "seconds": secs,
+                "seconds": secs, "lost_output": lost,
                 "launches": sum(v["kmeans_assign_partials"]
                                 for v in loop["launches"].values())}
     finally:
@@ -1924,12 +1983,17 @@ def text_jobs_phase(work: str) -> dict:
 
 
 def text_phase() -> dict:
-    """pi on the card, the CLI's pi, and wordcount and grep over 200 MB."""
+    """pi on the card, then wordcount and grep over 200 MB with the CLI's
+    pi beside them."""
     work = tempfile.mkdtemp(prefix="tpumr_torch-text-")
     try:
         out = pi_phase(work)
-        out["cli"] = pi_cli_phase()
-        out |= text_jobs_phase(work)
+        # the CLI's pi, a process of its own, beside wordcount and grep
+        beside = Beside(pi_cli_phase)
+        try:
+            out |= text_jobs_phase(work)
+        finally:
+            out["cli"] = beside.join()
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2220,15 +2284,21 @@ def spill_phase() -> dict:
     wordcount at io.sort.mb 100 (at least 3 spills), randomwriter then
     sort --total-order (Hadoop's Sort benchmark pair, upstream 1 GB a map
     cut to 128 MiB a map: 6 maps, about 768 MiB), and secondarysort and
-    join through the CLI. Each job prints one JSON line: its seconds,
+    join through the CLI (beside the first two). Each job prints one JSON
+    line: its seconds,
     maps, reduces, spills per map, merge, spill and combine counters and
     peak RSS."""
     t_phase = time.monotonic()
     work = tempfile.mkdtemp(prefix="tpumr_torch-spill-")
     try:
-        out = {"wordcount": per_record_wordcount(work)}
-        out["sort"] = sort_benchmark(work)
-        out["examples"] = secondarysort_and_join(work)
+        # the CLI's programs, processes of their own, beside the jobs here
+        beside = Beside(secondarysort_and_join, work)
+        try:
+            out = {"wordcount": per_record_wordcount(work)}
+            out["sort"] = sort_benchmark(work)
+        finally:
+            examples = beside.join()
+        out["examples"] = examples
         out["seconds"] = time.monotonic() - t_phase
         log("spill_phase " + json.dumps({"seconds": out["seconds"]}))
         return out
@@ -2253,6 +2323,15 @@ TERA_LEXSORT_ROWS = 10_000_000
 TERA_DISK_BYTES_PER_ROW = 340
 #: rows a checksum pass moves to the card at a time
 CHECKSUM_ROWS = 10_000_000
+#: the cluster_shuffle phase's mini cluster: one runner of TERA_CLUSTER_CPU
+#: CPU map slots, one GPU map slot and one reduce slot
+TERA_CLUSTER_CPU = 4
+#: (b)'s second host-shuffle run: records, teragen maps, and an in-memory
+#: shuffle budget (tpumr.shuffle.ram.mb) and merge factor small enough that
+#: every segment (about 0.66 MB raw) goes to disk and the disk segments
+#: merge in the background during the copy
+TERA_SPILL_ROWS, TERA_SPILL_MAPS = 200_000, 8
+TERA_SPILL_RAM_MB, TERA_SPILL_FACTOR = 2.0, 4
 
 
 class RssPeak:
@@ -2305,21 +2384,24 @@ def read_seq_batch(path: str):
     return b.key_data.reshape(n, -1), b.value_data.reshape(n, -1)
 
 
-def rows_checksum(path: str, keep_keys: bool = False) -> dict:
+def rows_checksum(path: str, keep_keys: bool = False,
+                  per_part: bool = False) -> dict:
     """The record count and an order-independent checksum of every
     100-byte row of a SequenceFile directory, computed on the card: each
     row's 25 little-endian int32 words weighted by two fixed int64 vectors
     (w1, w2) give h1, h2; the sums of h1 and of h1 * h2 wrap in int64.
-    With ``keep_keys`` also the keys [n, 10] in file order."""
+    With ``keep_keys`` also the keys [n, 10] in file order; with
+    ``per_part`` the record count of each part file (``part_records``)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(20260817)
     w = torch.randint(1, 2 ** 31 - 1, (2, 25), generator=gen,
                       dtype=torch.int64).to(dev)
     s1 = torch.zeros((), dtype=torch.int64, device=dev)
     s2 = torch.zeros((), dtype=torch.int64, device=dev)
-    count, keys = 0, []
+    count, keys, part_records = 0, [], []
     for part in seq_files(path):
         k, v = read_seq_batch(part)
+        part_records.append(int(k.shape[0]))
         if keep_keys:
             keys.append(np.ascontiguousarray(k))
         for lo in range(0, k.shape[0], CHECKSUM_ROWS):
@@ -2334,6 +2416,8 @@ def rows_checksum(path: str, keep_keys: bool = False) -> dict:
         count += k.shape[0]
         del k, v
     out = {"records": count, "sum_h1": int(s1), "sum_h1h2": int(s2)}
+    if per_part:
+        out["part_records"] = part_records
     if keep_keys:
         out["keys"] = np.concatenate(keys) if keys else \
             np.zeros((0, 10), np.uint8)
@@ -2436,19 +2520,61 @@ def teragen(out: str, rows: int, maps: int) -> float:
     return secs
 
 
-def teravalidate(out: str, report: str) -> None:
-    import contextlib
-    import io
+class ExampleProcess:
+    """``python -m tpumr_torch.cli examples ARGS`` started at once in a
+    process of its own, so that it runs beside this process's host work
+    (each process has its interpreter lock). :meth:`finish` waits for it,
+    logs one ``label`` line with its seconds (its start included) and
+    checks that it exited 0 and printed ``expect``; :meth:`stop` kills it.
+    As a context manager it finishes on a clean exit and stops otherwise.
+    """
 
-    from tpumr_torch.examples import terasort
-    buf = io.StringIO()
-    t = time.monotonic()
-    with contextlib.redirect_stdout(buf):
-        rc = terasort.teravalidate([f"file://{out}", f"file://{report}"])
-    printed = buf.getvalue()
-    log(f"terasort_validate {json.dumps({'rc': rc, 'seconds': time.monotonic() - t, 'printed': printed.strip()})}")
-    check(rc == 0 and "Output is globally sorted." in printed
-          and "FAILED" not in printed, f"teravalidate: {printed!r}")
+    def __init__(self, label: str, args: list, expect: str = "",
+                 row: "dict | None" = None) -> None:
+        self.label, self.args, self.expect = label, args, expect
+        self.row = row or {}
+        self.t = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tpumr_torch.cli", "examples"] + args,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(self) -> float:
+        try:
+            printed, err = self.proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"examples {' '.join(self.args)}: no end in 900 s")
+        secs = time.monotonic() - self.t
+        log(f"{self.label} " + json.dumps(self.row | {
+            "rc": self.proc.returncode, "seconds": secs, "process": True,
+            "printed": printed.strip()[-500:]}))
+        check(self.proc.returncode == 0 and self.expect in printed
+              and "FAILED" not in printed,
+              f"examples {self.args[0]}: rc {self.proc.returncode}, "
+              f"{printed[-500:]!r} {err[-2000:]!r}")
+        return secs
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+    def __enter__(self) -> "ExampleProcess":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if exc[0] is None:
+            self.finish()
+        else:
+            self.stop()
+
+
+def teravalidate_process(out: str, report: str) -> ExampleProcess:
+    return ExampleProcess("terasort_validate",
+                          ["teravalidate", f"file://{out}",
+                           f"file://{report}"],
+                          expect="Output is globally sorted.")
 
 
 def same_parts(a: str, b: str, what: str = "host and device shuffles"
@@ -2466,9 +2592,10 @@ def same_parts(a: str, b: str, what: str = "host and device shuffles"
     return total
 
 
-def tera_cli(work: str) -> dict:
+def tera_cli_programs(work: str) -> list:
     """teragen, terasort --device-shuffle and teravalidate through
-    python -m tpumr_torch.cli, each in a process of its own."""
+    python -m tpumr_torch.cli, each in a process of its own, one after
+    another; their seconds."""
     base = f"file://{work}/cli"
     cmds = [["teragen", str(TERA_CLI_ROWS), f"{base}-gen", "-m", "4"],
             ["terasort", f"{base}-gen", f"{base}-out", "-r",
@@ -2486,6 +2613,11 @@ def tera_cli(work: str) -> dict:
               f"{proc.returncode}: {proc.stderr[-2000:]}")
     check("Output is globally sorted." in proc.stdout,
           f"examples teravalidate printed {proc.stdout[-500:]!r}")
+    return secs
+
+
+def tera_cli(work: str, secs: list) -> dict:
+    """The CLI's output against its input: the same records."""
     sums = rows_checksum(f"{work}/cli-out")
     check(sums == rows_checksum(f"{work}/cli-gen") and
           sums["records"] == TERA_CLI_ROWS, "examples terasort lost or "
@@ -2496,53 +2628,354 @@ def tera_cli(work: str) -> dict:
     return row
 
 
-def terasort_phase(rows: int) -> dict:
-    """BASELINE config 5 through the port on the card: teragen of ``rows``
-    records (16 maps), the device-shuffled terasort cold then warm (4
-    ranges), the card's sort held to its stable order and to np.lexsort,
-    teravalidate and the checksums of input and output; then bench.py's
-    host shuffle beside the device shuffle at 2,000,000 records, and the
-    three programs through the CLI at 1,000,000."""
-    from tpumr_torch.parallel.device_sort import argsort_keys, key_columns
+def tera_cluster():
+    """The cluster_shuffle phase's MiniMRCluster: one node runner with
+    TERA_CLUSTER_CPU CPU map slots, one GPU map slot and one reduce slot,
+    on the card."""
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.mini_cluster import MiniMRCluster
+    base = JobConf()
+    base.set("mapred.tasktracker.reduce.tasks.maximum", 1)
+    return MiniMRCluster(num_trackers=1, cpu_slots=TERA_CLUSTER_CPU,
+                         tpu_slots=1, conf=base)
+
+
+def on_cluster(conf, c):
+    """``conf`` submitted to the cluster ``c``: its keys that the job
+    does not set."""
+    for k, v in c.create_job_conf():
+        if conf.get(k) is None:
+            conf.set(k, v)
+    return conf
+
+
+def task_span_s(reports: list) -> float:
+    """First start to last finish of a job's tasks of one kind."""
+    return (max(r["finish_time"] for r in reports)
+            - min(r["start_time"] for r in reports))
+
+
+def cluster_terasort(c, work: str, gen: str, rows: int, sums_in: dict,
+                     local_parts: list, local_fetch_s: float) -> dict:
+    """cluster_shuffle (a): BASELINE config 5 on the cluster. The
+    device-shuffled terasort of ``gen`` (TERA_REDUCES ranges) sent through
+    job_client.run_job to the cluster's master: the maps on the CPU slots,
+    every dense map output fetched over RPC by the gang reduce on the
+    runner (slow start 1.0, so that the fetch starts after the last map and
+    its seconds compare with the local run's), sorted on the card. One
+    cluster_terasort line: job and map seconds, the gang reduce's stages,
+    the dense bytes fetched, peak RSS and card memory. Checks: success,
+    TPU_SHUFFLE_RECORDS = rows, DEVICE_SORT_ON_ACCEL = 1, one device
+    argsort, the local run's record count in each part, the input's
+    checksum, teravalidate."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.examples.terasort import make_terasort_conf
+    from tpumr_torch.mapred import device_shuffle, job_client
+    from tpumr_torch.parallel.device_sort import argsort_keys
+    out_dir = f"{work}/out-cluster"
+    conf = on_cluster(make_terasort_conf(
+        f"file://{gen}", f"file://{out_dir}", TERA_REDUCES, True), c)
+    conf.set("mapred.reduce.slowstart.completed.maps", 1.0)
+    stages, fetched = {}, [0, 0]
+    run_reduce = device_shuffle.run_device_reduce
+    parse = device_shuffle.parse_dense_bytes
+
+    def recorded_reduce(*args, **kwargs):
+        stages.update(run_reduce(*args, **kwargs))
+        return stages
+
+    def counted_parse(data):
+        fetched[0] += len(data)
+        fetched[1] += 1
+        return parse(data)
+
+    launches = argsort_keys.launches
+    torch.cuda.reset_peak_memory_stats()
+    device_shuffle.run_device_reduce = recorded_reduce
+    device_shuffle.parse_dense_bytes = counted_parse
+    try:
+        with RssPeak() as rss:
+            t = time.monotonic()
+            result = job_client.run_job(conf)
+            job_s = time.monotonic() - t
+    finally:
+        device_shuffle.run_device_reduce = run_reduce
+        device_shuffle.parse_dense_bytes = parse
+    maps = c.master.get_task_reports(str(result.job_id), "map")
+    reduces = c.master.get_task_reports(str(result.job_id), "reduce")
+    row = {"records": rows, "job_s": job_s, "maps": result.num_maps,
+           "map_s": task_span_s(maps), "reduce_s": task_span_s(reduces),
+           "local_fetch_s": local_fetch_s} | stages | {
+        "dense_bytes_fetched": fetched[0], "dense_fetches": fetched[1],
+        "rss_start_gb": rss.start / 1e9, "peak_rss_gb": rss.peak / 1e9,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "argsort_launches": argsort_keys.launches - launches}
+    for name in ("TPU_SHUFFLE_RECORDS", "DEVICE_SORT_ON_ACCEL"):
+        row[name] = result.counters.value(BackendCounter.GROUP, name)
+    log("cluster_terasort " + json.dumps(row))
+    check(result.successful, "cluster terasort failed")
+    check(row["TPU_SHUFFLE_RECORDS"] == rows and
+          row["DEVICE_SORT_ON_ACCEL"] == 1 and row["argsort_launches"] == 1,
+          f"cluster terasort: TPU_SHUFFLE_RECORDS "
+          f"{row['TPU_SHUFFLE_RECORDS']}, DEVICE_SORT_ON_ACCEL "
+          f"{row['DEVICE_SORT_ON_ACCEL']}, {row['argsort_launches']} "
+          "device argsorts")
+    check(len(reduces) == 1 and row["dense_fetches"] == result.num_maps,
+          f"cluster terasort: {len(reduces)} reduces, "
+          f"{row['dense_fetches']} dense fetches of {result.num_maps} maps")
+    with teravalidate_process(out_dir, f"{work}/report-cluster"):
+        sums = rows_checksum(out_dir, per_part=True)
+    parts = sums.pop("part_records")
+    check(parts == local_parts, f"cluster terasort: part records {parts}, "
+          f"the local run's {local_parts}")
+    check(sums == sums_in, "cluster terasort: the output's records are "
+          "not the input's")
+    shutil.rmtree(out_dir)
+    return row
+
+
+def cluster_host_job(c, label: str, gen: str, out: str, rows: int,
+                     extra: "dict | None" = None) -> dict:
+    """One host-shuffled terasort (TERA_REDUCES reduces) on the cluster,
+    submitted through JobClient: its seconds, map and reduce seconds, the
+    copy phase's counters, and the runner's chunk calls."""
+    from tpumr_torch.core.counters import TaskCounter
+    from tpumr_torch.examples.terasort import make_terasort_conf
+    from tpumr_torch.mapred.job_client import JobClient
+    conf = on_cluster(make_terasort_conf(f"file://{gen}", f"file://{out}",
+                                         TERA_REDUCES), c)
+    for k, v in (extra or {}).items():
+        conf.set(k, v)
+    runner = c.trackers[0]
+    serve = runner.get_map_output_chunk
+    calls = [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return serve(*args)
+
+    runner.get_map_output_chunk = counted
+    client = JobClient(conf)
+    try:
+        t = time.monotonic()
+        running = client.submit_job(conf)
+        st = running.wait_for_completion(timeout=PIPE_TIMEOUT_S)
+        job_s = time.monotonic() - t
+        counters = running.counters()
+        maps = running.task_reports("map")
+        reduces = running.task_reports("reduce")
+    finally:
+        client.close()
+        del runner.get_map_output_chunk
+    check(st["state"] == "SUCCEEDED", f"cluster {label}: {st}")
+    g = TaskCounter.FRAMEWORK_GROUP
+    row = {"run": label, "records": rows, "job_s": job_s,
+           "maps": len(maps), "map_s": task_span_s(maps),
+           "reduce_s": task_span_s(reduces), "chunk_calls": calls[0]} | {
+        name: counters.value(g, name) for name in (
+            "REDUCE_SHUFFLE_SEGMENTS_MEM", "REDUCE_SHUFFLE_SEGMENTS_DISK",
+            "SHUFFLE_INMEM_MERGES", "SHUFFLE_DISK_MERGES", "MERGE_PASSES",
+            "REDUCE_SHUFFLE_BYTES", "REDUCE_FETCH_FAILURES")} | (extra or {})
+    check(all(r["successful_attempt"].endswith("_0")
+              for r in maps + reduces),
+          f"cluster {label}: a task succeeded only after a failed attempt")
+    return row
+
+
+def cluster_host_shuffle(work: str, gen: str, local_out: str,
+                         rows: int) -> dict:
+    """cluster_shuffle (b): the host shuffle on the cluster. ``rows``
+    records of ``gen`` sorted with TERA_REDUCES reduces at the default
+    tpumr.shuffle.parallel.copies, part for part the records of the local
+    run ``local_out`` of the same input; then TERA_SPILL_ROWS records at a
+    budget where every segment goes to disk and the disk segments merge
+    in the background, part for part the local run's. One cluster_shuffle
+    line."""
+    small = f"{work}/spill-gen"
+    teragen(small, TERA_SPILL_ROWS, TERA_SPILL_MAPS)
+    tera_run("spill_host", small, f"{work}/spill-host", TERA_SPILL_ROWS,
+             device_shuffle=False)
+    with tera_cluster() as c:
+        big = cluster_host_job(c, "host", gen, f"{work}/host-cluster", rows)
+        spill = cluster_host_job(
+            c, "spill_host", small, f"{work}/spill-cluster",
+            TERA_SPILL_ROWS, {"tpumr.shuffle.ram.mb": TERA_SPILL_RAM_MB,
+                              "io.sort.factor": TERA_SPILL_FACTOR})
+    check(same_parts(f"{work}/host-cluster", local_out,
+                     "the cluster's and the local shuffles") == rows,
+          "cluster host shuffle: records lost")
+    check(same_parts(f"{work}/spill-cluster", f"{work}/spill-host",
+                     "the cluster's spilled and the local host shuffles")
+          == TERA_SPILL_ROWS, "cluster spilled shuffle: records lost")
+    check(big["REDUCE_SHUFFLE_SEGMENTS_MEM"]
+          == big["maps"] * TERA_REDUCES, f"cluster host: "
+          f"{big['REDUCE_SHUFFLE_SEGMENTS_MEM']} segments in memory")
+    check(spill["REDUCE_SHUFFLE_SEGMENTS_DISK"] > 0
+          and spill["SHUFFLE_DISK_MERGES"] + spill["SHUFFLE_INMEM_MERGES"]
+          >= 1, f"cluster spill_host: {spill['REDUCE_SHUFFLE_SEGMENTS_DISK']}"
+          f" disk segments, {spill['SHUFFLE_DISK_MERGES']} disk and "
+          f"{spill['SHUFFLE_INMEM_MERGES']} in-memory merges")
+    row = {"runs": [big, spill]}
+    log("cluster_shuffle " + json.dumps(row))
+    return row
+
+
+def lost_output_rounds(c, work: str, n: int, km) -> dict:
+    """cluster_shuffle (c): a lost map output on the card. One K-Means
+    round (the pipeline phase's round conf, k = 16 from the first 16
+    rows) on the pipeline cluster of one GPU slot, without faults and
+    then with tpumr.fi.shuffle.serve.a0.probability=1: no map's first
+    output can be fetched, so the reduce reports each one (after one
+    failure: tpumr.shuffle.fetch.retries.per.source=1, backoff 10 to 100
+    ms, as tests/test_fetch_failure.py's chaos run) and the master
+    re-executes every map while the reduce waits. Checks: byte-identical
+    centroids, every faulted map's success its attempt 1, both reduces'
+    their attempt 0, every map on the GPU slot, the fused kernel once per
+    map attempt (n_maps and 2 n_maps)."""
+    from tpumr_torch.mapred.job_client import JobClient
+    from tpumr_torch.pipeline.graph import expand_round
+    from tpumr_torch.utils import fi
     t_phase = time.monotonic()
-    work = tempfile.mkdtemp(prefix="tpumr_torch-terasort-")
+    n_maps = -(-n // HYB_ROWS)
+    seeds = np.load(os.path.join(work, "pipe-cents-r0.npy"))
+    faults = {"tpumr.fi.shuffle.serve.a0.probability": 1.0,
+              "tpumr.shuffle.fetch.retries.per.source": 1,
+              "tpumr.shuffle.copy.backoff.ms": 10,
+              "tpumr.shuffle.copy.backoff.max.ms": 100}
+    runs = {}
+    for tag, extra in (("clean", {}), ("lost", faults)):
+        np.save(os.path.join(work, f"{tag}-cents-r0.npy"), seeds)
+        km.clear_centroid_cache()
+        conf = c.create_job_conf()
+        for key, value in expand_round(pipe_round_conf(work, f"{tag}-"),
+                                       0).items():
+            conf.set(key, value)
+        for key, value in extra.items():
+            conf.set(key, value)
+        fi.reset()
+        zero_launch_counts(km)
+        client = JobClient(conf)
+        try:
+            t = time.monotonic()
+            running = client.submit_job(conf)
+            st = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+            secs = time.monotonic() - t
+            maps = running.task_reports("map")
+            reduces = running.task_reports("reduce")
+        finally:
+            client.close()
+        runs[tag] = {"job_s": secs, "state": st["state"],
+                     "launches": launch_counts(km),
+                     "map_attempts": sorted(r["successful_attempt"][-1:]
+                                            for r in maps),
+                     "reduce_attempts": [r["successful_attempt"][-1:]
+                                         for r in reduces],
+                     "gpu_maps": sum(bool(r["run_on_tpu"]) for r in maps),
+                     "serve_faults": fi.fired("shuffle.serve.a0")}
+        fi.reset()
+    finals = []
+    for tag in ("clean", "lost"):
+        with open(os.path.join(work, f"{tag}-cents-r1.npy"), "rb") as f:
+            finals.append(f.read())
+    row = {"maps": n_maps, "seconds": time.monotonic() - t_phase} | runs
+    log("cluster_lost_output " + json.dumps(row))
+    for tag, attempt, launched in (("clean", "0", n_maps),
+                                   ("lost", "1", 2 * n_maps)):
+        r = runs[tag]
+        check(r["state"] == "SUCCEEDED", f"lost output, {tag}: {r}")
+        check(r["map_attempts"] == [attempt] * n_maps,
+              f"lost output, {tag}: map successes on attempts "
+              f"{r['map_attempts']}")
+        check(r["reduce_attempts"] == ["0"], f"lost output, {tag}: the "
+              f"reduce succeeded on attempt {r['reduce_attempts']}")
+        check(r["gpu_maps"] == n_maps, f"lost output, {tag}: "
+              f"{r['gpu_maps']} of {n_maps} maps on the GPU slot")
+        check(r["launches"] == {"kmeans_assign_partials": launched,
+                                "kmeans_assign": 0},
+              f"lost output, {tag}: launches {r['launches']}")
+    check(runs["lost"]["serve_faults"] >= n_maps,
+          f"lost output: {runs['lost']['serve_faults']} serving faults")
+    check(finals[0] == finals[1], "lost output: the faulted round's "
+          "centroids differ from the fault-free round's")
+    row["launches"] = sum(runs[tag]["launches"]["kmeans_assign_partials"]
+                          for tag in runs)
+    return row
+
+
+def teragen_process(work: str, rows: int) -> ExampleProcess:
+    """The terasort phase's teragen of ``rows`` records (TERA_MAPS maps)
+    into ``work``/gen, started in a process of its own so that it runs
+    beside the text and spill phases; ``work`` must have TERA_DISK_BYTES_PER_ROW
+    bytes free a record."""
     free = shutil.disk_usage(work).free
     need = TERA_DISK_BYTES_PER_ROW * rows
     check(free >= need, f"terasort: {free / 1e9:.1f} GB free under {work}, "
           f"the phase needs {need / 1e9:.1f} GB")
+    return ExampleProcess("terasort_teragen",
+                          ["teragen", str(rows), f"file://{work}/gen", "-m",
+                           str(TERA_MAPS)],
+                          row={"records": rows, "maps": TERA_MAPS})
+
+
+def terasort_phase(rows: int, work: str, gen_proc: ExampleProcess) -> dict:
+    """BASELINE config 5 through the port on the card: teragen of ``rows``
+    records (16 maps, ``gen_proc``: started before the text phase, in a
+    process of its own), the device-shuffled terasort cold (4 ranges), the
+    card's sort held to its stable order and to np.lexsort, teravalidate
+    and the checksums of input and output; the same job on the cluster
+    (cluster_shuffle (a)); then bench.py's host shuffle beside the device
+    shuffle at 2,000,000 records, the three programs through the CLI at
+    1,000,000, and the CLI's input sorted by the host shuffle on the
+    cluster (cluster_shuffle (b)). The local warm run of earlier PRs is
+    cut (PERF.md §4): it repeated the cold run's path."""
+    from tpumr_torch.parallel.device_sort import argsort_keys, key_columns
+    t_phase = time.monotonic()
     out = {}
     try:
         gen = f"{work}/gen"
-        out["teragen_s"] = teragen(gen, rows, TERA_MAPS)
+        out["teragen_s"] = gen_proc.finish()
         launches = argsort_keys.launches
-        out["cold"] = tera_run("cold", gen, f"{work}/out-cold", rows)
-        shutil.rmtree(f"{work}/out-cold")
-        out["warm"] = tera_run("warm", gen, f"{work}/out", rows)
+        out["cold"] = tera_run("cold", gen, f"{work}/out", rows)
         out["argsort_launches"] = argsort_keys.launches - launches
-        check(out["argsort_launches"] == 2, "terasort: "
-              f"{out['argsort_launches']} device argsorts in two jobs")
-        t = time.monotonic()
-        sums_in = rows_checksum(gen, keep_keys=True)
-        kcols = key_columns(sums_in.pop("keys"), 10)
-        out["read_input_s"] = time.monotonic() - t
-        out["sort_check"] = check_stable_sort(
-            kcols, min(rows, TERA_LEXSORT_ROWS))
-        del kcols
-        teravalidate(f"{work}/out", f"{work}/report")
-        sums_out = rows_checksum(f"{work}/out")
+        check(out["argsort_launches"] == 1, "terasort: "
+              f"{out['argsort_launches']} device argsorts in one job")
+        with teravalidate_process(f"{work}/out", f"{work}/report"):
+            t = time.monotonic()
+            sums_in = rows_checksum(gen, keep_keys=True)
+            kcols = key_columns(sums_in.pop("keys"), 10)
+            out["read_input_s"] = time.monotonic() - t
+            out["sort_check"] = check_stable_sort(
+                kcols, min(rows, TERA_LEXSORT_ROWS))
+            del kcols
+        sums_out = rows_checksum(f"{work}/out", per_part=True)
+        local_parts = sums_out.pop("part_records")
         log("terasort_checksum " + json.dumps(
-            {"input": sums_in, "output": sums_out}))
+            {"input": sums_in, "output": sums_out,
+             "part_records": local_parts}))
         check(sums_in == sums_out and sums_out["records"] == rows,
               "terasort: the output's records are not the input's")
         shutil.rmtree(f"{work}/out")
+        # cluster_shuffle (a): the same input on the cluster
+        t = time.monotonic()
+        with tera_cluster() as c:
+            out["cluster"] = cluster_terasort(c, work, gen, rows, sums_in,
+                                              local_parts,
+                                              out["cold"]["fetch_s"])
+        out["cluster"]["seconds"] = time.monotonic() - t
         shutil.rmtree(gen)
 
         bench = f"{work}/bench-gen"
         teragen(bench, TERA_BENCH_ROWS, TERA_BENCH_MAPS)
-        host = tera_run("bench_host", bench, f"{work}/bench-host",
-                        TERA_BENCH_ROWS, device_shuffle=False)
-        dev = tera_run("bench_device", bench, f"{work}/bench-device",
-                       TERA_BENCH_ROWS)
+        # the CLI's three programs, processes of their own, beside the
+        # host and device shuffles at 2,000,000
+        beside = Beside(tera_cli_programs, work)
+        try:
+            host = tera_run("bench_host", bench, f"{work}/bench-host",
+                            TERA_BENCH_ROWS, device_shuffle=False)
+            dev = tera_run("bench_device", bench, f"{work}/bench-device",
+                           TERA_BENCH_ROWS)
+        finally:
+            cli_secs = beside.join()
         check(same_parts(f"{work}/bench-host", f"{work}/bench-device")
               == TERA_BENCH_ROWS, "terasort: the host shuffle's records "
               "are not the device shuffle's")
@@ -2550,13 +2983,23 @@ def terasort_phase(rows: int) -> dict:
                         "terasort_device_job_s": dev["job_s"],
                         "terasort_records": TERA_BENCH_ROWS}
         log("terasort_bench " + json.dumps(out["bench"]))
-        out["cli"] = tera_cli(work)
+        out["cli"] = tera_cli(work, cli_secs)
+        # cluster_shuffle (b): the CLI's input, host-shuffled on the
+        # cluster, against the CLI's sort of it (the same records as the
+        # host shuffle's, part for part, as bench_host and bench_device
+        # show above)
+        t = time.monotonic()
+        out["cluster_host"] = cluster_host_shuffle(
+            work, f"{work}/cli-gen", f"{work}/cli-out", TERA_CLI_ROWS)
+        out["cluster_host"]["seconds"] = time.monotonic() - t
         log("terasort_phase " + json.dumps(
             {"seconds": time.monotonic() - t_phase,
-             "read_input_s": out["read_input_s"]}))
+             "read_input_s": out["read_input_s"],
+             "cluster_shuffle_s": out["cluster"]["seconds"]
+             + out["cluster_host"]["seconds"]}))
         return out
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        gen_proc.stop()
 
 
 def profile_warm_job(work: str) -> None:
@@ -2704,9 +3147,26 @@ def main() -> None:
     job2 = second_job(km)
     job3 = third_job(km)
     matmul_phase()
-    text_phase()
-    spill_phase()
-    terasort_phase(args.tera_rows)
+    tera_work = tempfile.mkdtemp(prefix="tpumr_torch-terasort-")
+    try:
+        # teragen of 10^8 in a process of its own, beside the text and
+        # spill phases' host work
+        gen_proc = teragen_process(tera_work, args.tera_rows)
+        try:
+            text_phase()
+            spill_phase()
+        except BaseException:
+            gen_proc.stop()
+            raise
+        tera = terasort_phase(args.tera_rows, tera_work, gen_proc)
+    finally:
+        shutil.rmtree(tera_work, ignore_errors=True)
+    lost = pipeline["lost_output"]
+    log("cluster_shuffle_phase " + json.dumps({
+        "seconds": tera["cluster"]["seconds"]
+        + tera["cluster_host"]["seconds"] + lost["seconds"],
+        "a_s": tera["cluster"]["seconds"],
+        "b_s": tera["cluster_host"]["seconds"], "c_s": lost["seconds"]}))
     f, a = fused["main"], shapes["job2"]
     kernels = [{
         "name": "kmeans_assign_partials", "route": "cuda",
@@ -2714,7 +3174,7 @@ def main() -> None:
         "replaces": "tpumr/ops/kmeans.py:57",
         "launches": main["launches"]["kmeans_assign_partials"]
         + rounds["launches"]["kmeans_assign_partials"]
-        + hybrid["launches"] + pipeline["launches"],
+        + hybrid["launches"] + pipeline["launches"] + lost["launches"],
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

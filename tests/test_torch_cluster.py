@@ -331,17 +331,50 @@ def test_failing_maps_on_both_pools_fail_the_job(port_cluster):
 
 
 def test_device_shuffled_job_is_refused_on_a_cluster(port_cluster):
+    """The name is kept from when the port refused this job at submission
+    (NotImplementedError). Now the same job, a device-shuffled sort of
+    fixed-width records, runs on the cluster: the master holds it with one
+    gang reduce, the requested reduces become its output ranges, and every
+    record goes through the device shuffle, sorted
+    (tests/test_device_shuffle.py::TestDeviceShuffleMiniCluster)."""
+    from tpumr_torch.examples import terasort
+    from tpumr_torch.io import sequencefile
+    from tpumr_torch.mapred.api import IdentityMapper, RawComparator
+    from tpumr_torch.mapred.input_formats import SequenceFileInputFormat
+    from tpumr_torch.mapred.output_formats import SequenceFileOutputFormat
+    assert terasort.teragen(["200", "mem:///dsr/gen", "-m", "2", "-D",
+                             f"{DEVICE_KEY}=cpu"]) == 0
     conf = port_cluster.create_job_conf()
-    conf.set_input_paths("mem:///nothing")
-    conf.set_output_path("mem:///nothing-out")
+    conf.set_input_paths("mem:///dsr/gen")
+    conf.set_output_path("mem:///dsr/out")
+    conf.set_input_format(SequenceFileInputFormat)
+    conf.set_mapper_class(IdentityMapper)
+    conf.set_output_format(SequenceFileOutputFormat)
+    conf.set_output_key_comparator_class(RawComparator)
+    conf.set_num_reduce_tasks(3)
     conf.set_device_shuffle(10, 90)
     client = JobClient(conf)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            client.submit_job(conf)
+        result = client.run_job(conf, timeout=JOB_TIMEOUT)
     finally:
         client.close()
-    assert port_cluster.master.jobs == {}
+    assert list(port_cluster.master.jobs) == [str(result.job_id)]
+    jip = port_cluster.master.jobs[str(result.job_id)]
+    assert len(jip.reduces) == 1 and jip.state == "SUCCEEDED"
+    assert result.counters.value(BackendCounter.GROUP,
+                                 BackendCounter.TPU_SHUFFLE_RECORDS) == 200
+    fs = FileSystem.get("mem:///", _port_conf())
+    parts = sorted(str(st.path) for st in fs.list_files("mem:///dsr/out")
+                   if st.path.name.startswith("part-"))
+    assert len(parts) == 3
+    keys = []
+    for p in parts:
+        f = fs.open(p)
+        try:
+            keys += [k for k, _ in sequencefile.Reader(f)]
+        finally:
+            f.close()
+    assert len(keys) == 200 and keys == sorted(keys)
 
 
 def test_class_objects_do_not_cross_the_wire(port_cluster):

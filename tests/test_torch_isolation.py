@@ -44,7 +44,8 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
                  "mapred.tasktracker", "mapred.shuffle_copier",
                  "mapred.job_client", "mapred.mini_cluster",
                  "pipeline.graph", "pipeline.pipeline_in_progress",
-                 "pipeline.handoff", "pipeline.client", "cli"):
+                 "pipeline.handoff", "pipeline.client", "cli", "utils.fi",
+                 "io.fdcache"):
         assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 

@@ -19,6 +19,18 @@ class TaskCounter:
     REDUCE_INPUT_GROUPS = "REDUCE_INPUT_GROUPS"
     REDUCE_INPUT_RECORDS = "REDUCE_INPUT_RECORDS"
     REDUCE_OUTPUT_RECORDS = "REDUCE_OUTPUT_RECORDS"
+    #: the shuffle's copy phase (mapred/shuffle_copier.py): raw and wire
+    #: bytes copied, segments landed in memory and on disk, fetch failures
+    #: survived, and the background merges with the segments they took
+    REDUCE_SHUFFLE_BYTES = "REDUCE_SHUFFLE_BYTES"
+    REDUCE_SHUFFLE_WIRE_BYTES = "REDUCE_SHUFFLE_WIRE_BYTES"
+    REDUCE_SHUFFLE_SEGMENTS_MEM = "REDUCE_SHUFFLE_SEGMENTS_MEM"
+    REDUCE_SHUFFLE_SEGMENTS_DISK = "REDUCE_SHUFFLE_SEGMENTS_DISK"
+    REDUCE_FETCH_FAILURES = "REDUCE_FETCH_FAILURES"
+    SHUFFLE_INMEM_MERGES = "SHUFFLE_INMEM_MERGES"
+    SHUFFLE_INMEM_MERGE_SEGMENTS = "SHUFFLE_INMEM_MERGE_SEGMENTS"
+    SHUFFLE_DISK_MERGES = "SHUFFLE_DISK_MERGES"
+    SHUFFLE_DISK_MERGE_SEGMENTS = "SHUFFLE_DISK_MERGE_SEGMENTS"
     SPILLED_RECORDS = "SPILLED_RECORDS"
     #: intermediate merge passes (io/merger.py), and the runs they merged
     MERGE_PASSES = "MERGE_PASSES"

@@ -10,6 +10,13 @@ merge of compressed spill segments reads through
 (``ifile.iter_chunked_segment``). The native ``tlz`` codec
 (``native/tlz/``, ``:148-312``) is not ported: asking for it raises, and so
 does reading a file written with it.
+
+The shuffle's wire codec (``:344-377``): :func:`wire_codec_or_none` turns
+``tpumr.shuffle.wire.codec`` into a codec this process has, else ``none``
+(so the JAX package's default, ``tlz``, sends chunks uncompressed here),
+and :func:`wire_compress` compresses a served chunk of an uncompressed
+spill only where that makes it smaller. The client undoes it by the
+``wire`` field of the response (``shuffle_copier.RemoteChunkSource``).
 """
 
 from __future__ import annotations
@@ -138,3 +145,33 @@ def get_codec(name: "str | None") -> CompressionCodec:
                              f"{sorted(_REGISTRY)}")
         raise ValueError(f"unknown codec {name!r}; have {sorted(_REGISTRY)}")
     return cls()
+
+
+def wire_codec_or_none(name: "str | None") -> str:
+    """The configured wire codec where this process has it, else
+    ``none``: the wire codec is a transport choice, never a format, so a
+    codec the port lacks sends chunks as they are."""
+    if not name or name == "none":
+        return "none"
+    return name.lower() if name.lower() in _REGISTRY else "none"
+
+
+#: chunks shorter than this go uncompressed: the codec's frame eats the gain
+WIRE_MIN_BYTES = 1024
+
+
+def wire_compress(out: dict, wire: str) -> None:
+    """Compress one served chunk's ``data`` in place for the wire, and
+    name the codec in ``out["wire"]``, where the client offered a codec,
+    the spill itself is uncompressed, and the result is shorter; else
+    leave ``out`` as it is."""
+    if (not wire or wire == "none" or out.get("codec", "none") != "none"
+            or len(out["data"]) < WIRE_MIN_BYTES):
+        return
+    try:
+        comp = get_codec(wire).compress(bytes(out["data"]))
+    except Exception:  # noqa: BLE001 — the wire codec is best-effort
+        return
+    if len(comp) < len(out["data"]):
+        out["wire"] = wire
+        out["data"] = comp

@@ -12,13 +12,19 @@ serves that segment's bytes to a remote reduce as they lie on disk
 (:func:`iter_transferred_segment`). A merge reads a segment straight from
 its file in bounded chunks (:func:`file_region_chunks`), through the
 codec's streaming decompressor (:func:`iter_chunked_segment`), so no
-segment is ever held whole.
+segment is ever held whole. The merges (``:244-343`` there):
+:func:`merge_sorted`, lazy, with the raw-key fast path
+(:func:`is_raw_sort_key`, :func:`_merge_two_raw`), and
+:func:`merge_sorted_inmem` for segments held in memory; all give the JAX
+package's bytes, equal keys in segment order.
 """
 
 from __future__ import annotations
 
 import heapq
 import struct
+from itertools import chain
+from operator import itemgetter
 from typing import Any, BinaryIO, Callable, Iterable, Iterator
 
 from tpumr_torch.io.compress import get_codec
@@ -191,14 +197,95 @@ def file_region_chunks(path: str, offset: int, length: int,
         yield piece
 
 
+#: the raw-key fast path's key: a C getter, no Python frame a comparison
+_KEY0 = itemgetter(0)
+
+#: two distinct probe keys for :func:`is_raw_sort_key`: identity must hold
+#: on both (a function that returns one fixed object passes one)
+_PROBE_A = b"\x00\xff tpumr-raw-probe"
+_PROBE_B = b"z"
+
+
+def is_raw_sort_key(sort_key: "Callable[[bytes], Any] | None") -> bool:
+    """True where ``sort_key`` orders key bytes as the bytes themselves
+    (``RawComparator``: ``sort_key(k) is k``), probed on two keys; None
+    counts as raw."""
+    if sort_key is None:
+        return True
+    try:
+        return (sort_key(_PROBE_A) is _PROBE_A
+                and sort_key(_PROBE_B) is _PROBE_B)
+    except Exception:  # noqa: BLE001 — a picky comparator is not raw
+        return False
+
+
+def _merge_two_raw(a: "Iterator[tuple[bytes, bytes]]",
+                   b: "Iterator[tuple[bytes, bytes]]"
+                   ) -> Iterator[tuple[bytes, bytes]]:
+    """Two raw-key streams merged with one bytes comparison a record and
+    no heap. Equal keys come from ``a`` first, as ``heapq.merge`` gives
+    them, so both paths give the same bytes."""
+    try:
+        ka, va = next(a)
+    except StopIteration:
+        yield from b
+        return
+    try:
+        kb, vb = next(b)
+    except StopIteration:
+        yield ka, va
+        yield from a
+        return
+    while True:
+        if ka <= kb:
+            yield ka, va
+            try:
+                ka, va = next(a)
+            except StopIteration:
+                yield kb, vb
+                yield from b
+                return
+        else:
+            yield kb, vb
+            try:
+                kb, vb = next(b)
+            except StopIteration:
+                yield ka, va
+                yield from a
+                return
+
+
 def merge_sorted(segments: "list[Iterable[tuple[bytes, bytes]]]",
                  sort_key: "Callable[[bytes], Any] | None"
                  ) -> Iterator[tuple[bytes, bytes]]:
     """K-way merge of sorted (key, value) streams, ordered by
-    ``sort_key`` of the key bytes (the bytes themselves when None). Stable:
-    equal keys come out in segment order, as in the JAX package's merge."""
+    ``sort_key`` of the key bytes. Stable: equal keys come out in segment
+    order, as in the JAX package's merge. Where ``sort_key`` is the
+    identity on bytes (:func:`is_raw_sort_key`) the merge compares the raw
+    keys through ``itemgetter(0)``, and two segments take
+    :func:`_merge_two_raw`; every path gives the same bytes."""
+    if not segments:
+        return iter(())
     if len(segments) == 1:
         return iter(segments[0])
-    if sort_key is None:
-        return heapq.merge(*segments, key=lambda kv: kv[0])
+    if is_raw_sort_key(sort_key):
+        if len(segments) == 2:
+            return _merge_two_raw(iter(segments[0]), iter(segments[1]))
+        return heapq.merge(*segments, key=_KEY0)
     return heapq.merge(*segments, key=lambda kv: sort_key(kv[0]))
+
+
+def merge_sorted_inmem(segments: "list[Iterable[tuple[bytes, bytes]]]",
+                       sort_key: "Callable[[bytes], Any] | None"
+                       ) -> "list[tuple[bytes, bytes]]":
+    """The merge of segments already in memory, as one list: the runs
+    chained and sorted by Timsort, whose run detection merges them in C.
+    The sort is stable, so equal keys keep segment order, the bytes of
+    :func:`merge_sorted`. The caller bounds the input (the shuffle's merge
+    manager merges within its RAM budget)."""
+    records = list(chain.from_iterable(segments))
+    if is_raw_sort_key(sort_key):
+        records.sort(key=_KEY0)
+    else:
+        records.sort(key=lambda kv: sort_key(kv[0]))
+    return records

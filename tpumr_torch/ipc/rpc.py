@@ -59,26 +59,42 @@ class RpcError(RuntimeError):
         self.remote_message = remote_message
 
 
-def _read_exact(sock: socket.socket, n: int) -> bytes:
-    buf = bytearray()
-    while len(buf) < n:
-        chunk = sock.recv(min(n - len(buf), 1 << 22))
-        if not chunk:
+def _read_exact(sock: socket.socket, n: int) -> bytearray:
+    """``n`` bytes received straight into one buffer of that size: a
+    ``recv`` of a large size allocates that size for each call however
+    little arrives, which makes a large frame slow (PERF.md §6 has the
+    rates)."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:])
+        if not k:
             raise ConnectionError("peer closed")
-        buf.extend(chunk)
-    return bytes(buf)
+        got += k
+    return buf
+
+
+def _send_payload(sock: socket.socket, payload: bytes) -> None:
+    """The length and the payload; a large payload is not copied to join
+    them."""
+    if len(payload) < (1 << 16):
+        sock.sendall(_LEN.pack(len(payload)) + payload)
+    else:
+        sock.sendall(_LEN.pack(len(payload)))
+        sock.sendall(payload)
 
 
 def _send_frame(sock: socket.socket, obj: Any) -> None:
-    payload = serialize(obj)
-    sock.sendall(_LEN.pack(len(payload)) + payload)
+    _send_payload(sock, serialize(obj))
 
 
 def _recv_frame(sock: socket.socket) -> Any:
     (length,) = _LEN.unpack(_read_exact(sock, 4))
     if length > MAX_FRAME:
         raise ConnectionError(f"frame too large: {length}")
-    return deserialize(_read_exact(sock, length))
+    # a view: the values are copied out of the frame once
+    return deserialize(memoryview(_read_exact(sock, length)))
 
 
 class _Handler(socketserver.BaseRequestHandler):
@@ -103,7 +119,7 @@ class _Handler(socketserver.BaseRequestHandler):
                 except TypeError as e:   # a result the codec cannot carry
                     payload = serialize({"id": resp.get("id"),
                                          "error": ["TypeError", str(e)]})
-                sock.sendall(_LEN.pack(len(payload)) + payload)
+                _send_payload(sock, payload)
         except (ConnectionError, OSError, EOFError):
             return
 

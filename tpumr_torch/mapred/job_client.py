@@ -8,11 +8,12 @@ the splits' dicts to that job master over RPC, and polls it
 (:class:`RunningJob`). Classes travel as dotted names of importable
 modules (:func:`_wire_conf` raises on a class object).
 
-A device-shuffled job (``JobConf.set_device_shuffle``) is refused on a
-cluster: its gang reduce and the dense map-output serving are not ported
-to the node runner yet (``ROADMAP.md`` §1 item 2, the distributed
-runtime's open pieces). Left out as well: credentials and tokens, the
-submitting user's name, and following a job recovered under a new id.
+A device-shuffled job (``JobConf.set_device_shuffle``) is planned at
+submission (``device_shuffle.prepare_device_shuffle_job``, ``:142-143``):
+one gang reduce task, the reduces asked for kept as its output ranges; a
+custom key comparator, a grouping comparator or missing widths are refused
+there. Left out: credentials and tokens, the submitting user's name, and
+following a job recovered under a new id.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any
 
 from tpumr_torch.core.counters import Counters
 from tpumr_torch.ipc.rpc import RpcClient
-from tpumr_torch.mapred.device_shuffle import is_device_shuffle
+from tpumr_torch.mapred.device_shuffle import prepare_device_shuffle_job
 from tpumr_torch.mapred.ids import JobID
 from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.local_runner import JobResult, LocalJobRunner
@@ -112,14 +113,11 @@ class JobClient:
 
 
 def build_submission(job_conf: JobConf) -> "tuple[dict, list[dict]]":
-    """The client side of a submission: check the output spec, compute
-    the splits, and serialise the conf. Returns ``(conf_dict,
-    split_dicts)`` for the master's ``submit_job``."""
-    if is_device_shuffle(job_conf):
-        raise NotImplementedError(
-            "a device-shuffled job runs only on LocalJobRunner: the gang "
-            "reduce on a cluster is not ported yet (ROADMAP.md §1 item 2, "
-            "the distributed runtime's open pieces)")
+    """The client side of a submission: plan a device-shuffled job's
+    reduce phase, check the output spec, compute the splits, and serialise
+    the conf. Returns ``(conf_dict, split_dicts)`` for the master's
+    ``submit_job``."""
+    prepare_device_shuffle_job(job_conf)   # the reduces -> one gang task
     conf_dict = _wire_conf(job_conf)
     in_fmt = new_instance(job_conf.get_input_format(), job_conf)
     new_instance(job_conf.get_output_format(), job_conf) \

@@ -24,22 +24,35 @@ same numbers from the same task statuses:
   report at assignment, the placement timeline, :meth:`status_dict` and
   the job's summed counters;
 - :class:`CompletionEventFeed`, the append-only map-completion feed that
-  reduces poll for map output locations, and a second one,
+  reduces poll for map output locations (a withdrawn output marked
+  ``OBSOLETE`` in place and announced by a tombstone,
+  :meth:`_obsolete_map_output`, ``:1188``), and a second one,
   ``handoff_events``, on which a streaming pipeline stage announces each
   committed reduce partition (``map_index`` holding the partition;
   ``:341-356, 1083-1090``); :meth:`withdraw_handoff_at` tombstones a lost
   runner's announcements (``:1360-1385``);
+- :meth:`fetch_failure_notification` (``:1220-1302``), the master's side of
+  the lost-output protocol: a running reduce attempt of this job reports a
+  map attempt's output unfetchable; reports count once per reduce task,
+  and at ``min(mapred.max.fetch.failures.per.map, live reduces)`` of them
+  the attempt is failed and burned, its output withdrawn, the finished-map
+  books unwound (:meth:`_unwind_finished_map`, ``:1205``), and the map
+  goes back to the pending set for any slot; a map that keeps losing its
+  output fails the job at ``mapred.map.max.attempts``;
 - ``sched_anchor``, the FIFO sort key: the submit time, or the pipeline's
   for a pipeline's stage job (``:357``).
 
-Left out (``ROADMAP.md``): speculative attempts, fetch-failure accounting,
-restart recovery, the progress-rate model, brownout holds, rack locality,
+Left out (``ROADMAP.md``): speculative attempts, restart recovery (so the
+reports of reduces adopted from a recovered job), the progress-rate model,
+brownout holds, rack locality,
 and the TPU-to-CPU demotion and job-level accelerator quarantine
 (``_note_tpu_failure``, ``_cpu_only_maps``, ``tpu_disabled``). Where the
 JAX package demotes, the port does the reverse: a map whose attempt failed
 on an accelerator slot is offered to accelerator slots only from then on,
 so a failing kernel fails the job after ``mapred.map.max.attempts``
-instead of the map finishing on a CPU slot and hiding the fault.
+instead of the map finishing on a CPU slot and hiding the fault. A map
+re-executed for lost output did not fail on the device, and goes to any
+slot, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from tpumr_torch.mapred.task import Task, TaskReport, TaskState, TaskStatus
 _DEFAULTS = {"mapred.reduce.tasks": 1, "mapred.map.max.attempts": 4,
              "mapred.reduce.max.attempts": 4,
              "mapred.reduce.slowstart.completed.maps": 0.05,
+             "mapred.max.fetch.failures.per.map": 3,
              "mapred.job.priority": "NORMAL", "tpumr.profile.ewma": 0.0,
              "mapred.job.map.memory.mb": 0, "mapred.job.reduce.memory.mb": 0}
 
@@ -171,6 +185,13 @@ class JobInProgress:
                                                 "mapred.map.max.attempts"))
         self.max_reduce_attempts = int(_conf_value(
             self.conf, "mapred.reduce.max.attempts"))
+        #: reduce tasks that must report a map attempt's output
+        #: unfetchable before the map is re-executed
+        self.max_fetch_failures_per_map = int(_conf_value(
+            self.conf, "mapred.max.fetch.failures.per.map"))
+        #: map attempt -> the reduce tasks that reported it, below the
+        #: threshold
+        self._fetch_failures: "dict[str, set[str]]" = {}
         self.slowstart = float(_conf_value(
             self.conf, "mapred.reduce.slowstart.completed.maps"))
         self.priority = normalize_priority(_conf_value(
@@ -432,6 +453,108 @@ class JobInProgress:
         else:
             self._pending_reduces.add(tip.partition)
 
+    def _obsolete_map_output(self, tip: TaskInProgress, aid: str) -> str:
+        """Withdraw a published map output: its events marked ``OBSOLETE``
+        in place (a reader from cursor 0 sees SUCCEEDED then OBSOLETE) and
+        a tombstone appended for the readers past them. Returns the address
+        that served it ("" if it was never published). Caller holds
+        ``lock``."""
+        addr = ""
+        for e in self.completion_events:
+            if e["attempt_id"] == aid and e.get("status") != "OBSOLETE":
+                addr = e.get("shuffle_addr", "")
+                e["status"] = "OBSOLETE"
+        self.completion_events.append({
+            "map_index": tip.partition, "attempt_id": aid,
+            "shuffle_addr": addr, "status": "OBSOLETE"})
+        return addr
+
+    def _unwind_finished_map(self, tip: TaskInProgress,
+                             st: "TaskStatus | None") -> None:
+        """Take a finished map out of the books, its backend's runtime sum
+        too, so that the re-run is not counted twice in the means. Caller
+        holds ``lock``."""
+        self.finished_maps -= 1
+        if st is not None and st.is_map:
+            if st.run_on_tpu:
+                self.finished_tpu_maps -= 1
+                self._tpu_time_sum -= st.runtime
+            else:
+                self.finished_cpu_maps -= 1
+                self._cpu_time_sum -= st.runtime
+
+    def fetch_failure_notification(self, map_attempt: str,
+                                   reduce_attempt: str) -> "dict | None":
+        """A reduce attempt reports ``map_attempt``'s output unfetchable.
+        None for a report that does not count: an unknown or forged
+        reporter (it must be a running reduce attempt of this job), a map
+        attempt not (or no longer) the map's success, a job not running.
+        Else ``withdrawn`` (the threshold was reached: the attempt failed
+        and burned, its output withdrawn, the map pending again),
+        ``reexecuted`` (withdrawn and the job goes on), the serving
+        ``shuffle_addr`` and the ``reports`` counted."""
+        try:
+            attempt = TaskAttemptID.parse(map_attempt)
+            reducer = TaskAttemptID.parse(reduce_attempt)
+        except (ValueError, IndexError):
+            return None
+        with self.lock:
+            if self.state != JobState.RUNNING or not attempt.task.is_map:
+                return None
+            tip = self._tip_of(attempt.task)
+            if tip is None:
+                return None
+            if reducer.task.is_map or reducer.task.job != self.job_id:
+                return None
+            rtip = self._tip_of(reducer.task)
+            rst = rtip.attempts.get(reduce_attempt) \
+                if rtip is not None else None
+            if rst is None or rst.state != TaskState.RUNNING:
+                return None
+            if tip.state != "succeeded" \
+                    or tip.successful_attempt != map_attempt:
+                return None   # stale: already withdrawn
+            reporters = self._fetch_failures.setdefault(map_attempt, set())
+            # by reduce task: a second attempt of one reduce corroborates
+            # nothing new
+            reporters.add(str(reducer.task))
+            n_reports = len(reporters)
+            live_reduces = max(1, len(self.reduces) - self.finished_reduces)
+            threshold = min(self.max_fetch_failures_per_map, live_reduces)
+            if n_reports < threshold:
+                return {"withdrawn": False, "reexecuted": False,
+                        "shuffle_addr": "", "reports": n_reports}
+            del self._fetch_failures[map_attempt]
+            addr = self._obsolete_map_output(tip, map_attempt)
+            st = tip.attempts.get(map_attempt)
+            if st is not None:
+                st.state = TaskState.FAILED
+                st.diagnostics = (
+                    f"Too many fetch failures: {n_reports} reducer(s) "
+                    f"could not fetch this attempt's output from {addr}")
+            # burned: a map whose output keeps vanishing fails the job like
+            # any task that keeps failing. It did not fail on the device,
+            # so it goes back for any slot (not _gpu_only_maps).
+            tip.failures += 1
+            tip.state = "pending"
+            tip.successful_attempt = ""
+            self._unwind_finished_map(tip, st)
+            self._pending_maps.add(tip.partition)
+            if tip.failures >= self.max_map_attempts:
+                self.state = JobState.FAILED
+                self.finish_time = time.time()
+                self.error = (f"map {tip.task_id} lost its output to "
+                              f"fetch failures {tip.failures} times")
+                return {"withdrawn": True, "reexecuted": False,
+                        "shuffle_addr": addr, "reports": n_reports}
+            return {"withdrawn": True, "reexecuted": True,
+                    "shuffle_addr": addr, "reports": n_reports}
+
+    def fetch_failure_pending_count(self) -> int:
+        """Map attempts with reports below the threshold."""
+        with self.lock:
+            return len(self._fetch_failures)
+
     def requeue_lost_attempts(self, attempt_ids: "list[str]") -> "list[str]":
         """A node runner was lost: its running attempts are killed and
         their tasks requeued, and its finished maps too where the job has
@@ -461,20 +584,10 @@ class JobInProgress:
                       and self.state == JobState.RUNNING):
                     tip.state = "pending"
                     tip.successful_attempt = ""
-                    self.finished_maps -= 1
-                    if st is not None and st.run_on_tpu:
-                        self.finished_tpu_maps -= 1
-                        self._tpu_time_sum -= st.runtime
-                    elif st is not None:
-                        self.finished_cpu_maps -= 1
-                        self._cpu_time_sum -= st.runtime
+                    self._unwind_finished_map(tip, st)
                     self._pending_maps.add(tip.partition)
-                    for e in list(self.completion_events):
-                        if e["attempt_id"] == aid \
-                                and e.get("status") != "OBSOLETE":
-                            e["status"] = "OBSOLETE"
-                            self.completion_events.append(
-                                dict(e, status="OBSOLETE"))
+                    self._obsolete_map_output(tip, aid)
+                    self._fetch_failures.pop(aid, None)
                     withdrawn.append(aid)
         return withdrawn
 

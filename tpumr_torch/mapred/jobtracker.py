@@ -16,6 +16,12 @@ master commits its output (``FileOutputCommitter.commit_job``, or
 and only then shows clients the terminal state. It also grants each task's
 commit to the first attempt that asks (:meth:`can_commit`).
 
+A heartbeat's ``fetch_failures`` (``:2867-2868``), the reports of the
+runner's reduces that a map attempt's output cannot be fetched, go to the
+job's ``fetch_failure_notification``; where the job withdraws the output
+and re-executes the map, the burned attempt's commit grant is revoked
+(:meth:`JobMaster._fetch_failure`).
+
 RPC methods: ``submit_job(conf_dict, splits)`` (``:1326``),
 ``heartbeat(status, initial_contact, ask_for_new_task, response_id)``,
 ``get_job_status`` (``:1636``), ``get_counters``, ``get_task_reports``,
@@ -43,8 +49,9 @@ announcements are withdrawn with its map outputs.
 Left out (``ROADMAP.md``): job history, tracing and metrics, the sharded
 tracker registry and lock ranks, ACLs, queues and tokens, the HTTP pages,
 restart recovery (of jobs and pipelines) and tracker adoption, the
-heartbeat delta encoding, blacklisting, fetch-failure re-execution and host
-include and exclude lists.
+heartbeat delta encoding, blacklisting (so the fault that a lost output
+charges to the runner that served it), the fetch-failure metrics and
+history events, and host include and exclude lists.
 """
 
 from __future__ import annotations
@@ -328,6 +335,11 @@ class JobMaster:
             self._requeue_tracker_work(old)
         with info.lock:
             self._fold_statuses(info, status, finished)
+            # the reduces' fetch-failure reports, folded before the replay
+            # check as the statuses are: a runner drops them only once a
+            # response arrived, and a report counted twice counts once
+            for ff in status.get("fetch_failures") or []:
+                self._fetch_failure(ff, finished)
             last = self._last_response.get(name)
             if last is not None and last[0] != response_id \
                     and not initial_contact:
@@ -391,6 +403,30 @@ class JobMaster:
                                     str(ts.attempt_id))
             if done:
                 finished.append(jip)
+
+    def _fetch_failure(self, ff: dict,
+                       finished: "list[JobInProgress]") -> None:
+        """One reduce's report that a map attempt's output cannot be
+        fetched (``:3056-3085``): the job counts it, and where it withdraws
+        the output the burned attempt's commit grant is revoked, so that
+        the re-run can commit."""
+        map_attempt = str(ff.get("map_attempt", ""))
+        try:
+            task_id = TaskAttemptID.parse(map_attempt).task
+        except (ValueError, IndexError):
+            return
+        jip = self.jobs.get(str(task_id.job))
+        if jip is None:
+            return
+        before = jip.state
+        res = jip.fetch_failure_notification(
+            map_attempt, str(ff.get("reduce_attempt", "")))
+        if res is None:
+            return
+        if res["withdrawn"]:
+            self._revoke_commit(str(task_id), map_attempt)
+        if before == JobState.RUNNING and jip.state in JobState.TERMINAL:
+            finished.append(jip)
 
     # ------------------------------------------------------------ expiry
 

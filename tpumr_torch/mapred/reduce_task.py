@@ -1,12 +1,18 @@
 """Reduce-side execution: the map outputs' segments of this partition,
 merged, grouped, reduced and written.
 
-Counterpart of ``tpumr/mapred/reduce_task.py``. The segments come from a
-source's ``segments(partition)``: lazy views over the map outputs' files
-in this process (``shuffle_copier.LocalSegmentSource``) or each map's
-segment fetched from the node runner that serves it
-(``shuffle_copier.RemoteSegmentSource``), and they are closed when the
-attempt ends, however it ends (``:54-104``). The merge is bounded by
+Counterpart of ``tpumr/mapred/reduce_task.py``. The segments come from one
+of two sources (``:54-104``): lazy views over the map outputs' files in
+this process (a source with ``segments(partition)``:
+``shuffle_copier.LocalSegmentSource``), or a chunk source (one with
+``chunk_bytes``: ``shuffle_copier.RemoteChunkSource``) that a
+``shuffle_copier.ShuffleCopier`` copies from in parallel within its RAM
+budget, into a spill directory of the attempt's own, reporting fetch
+failures through the source's ``on_fetch_failure`` and stopping at its
+``abort_check``. The attempt first passes the ``reduce.task`` fault seam
+(``utils/fi``). Whatever ends the attempt, its reducer's setup included,
+every segment is closed (releasing the RAM budget, deleting the copy's
+spills) and the spill directory removed. The merge is bounded by
 ``io.sort.factor`` (``io/merger.BoundedMerge``, ``:108-126``), with its
 intermediate runs under ``tpumr.task.local.dir`` where the node runner
 sets it. It orders by the output-key comparator; the reduce groups run
@@ -28,6 +34,9 @@ serving.
 
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
 from typing import Any, Callable, Iterator
 
 from tpumr_torch.core.counters import TaskCounter
@@ -36,24 +45,43 @@ from tpumr_torch.io.writable import deserialize
 from tpumr_torch.mapred.api import IdentityReducer, OutputCollector, Reporter
 from tpumr_torch.mapred.map_task import localize_task_conf
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
+from tpumr_torch.mapred.shuffle_copier import ShuffleCopier
 from tpumr_torch.mapred.task import Task
 from tpumr_torch.pipeline.handoff import HandoffWriter
+from tpumr_torch.utils.fi import maybe_fail
 from tpumr_torch.utils.reflection import new_instance
 
 
 def run_reduce_task(conf: Any, task: Task, source: Any,
                     reporter: "Reporter | None" = None) -> "dict | None":
-    """Execute one reduce attempt over ``source.segments(task.partition)``
-    into the attempt's committer work dir. Returns the handoff tee's
-    registration (``HandoffWriter.finish``) where the attempt streams its
-    output, else None."""
+    """Execute one reduce attempt over the map outputs' segments of
+    ``task.partition`` from ``source`` into the attempt's committer work
+    dir. Returns the handoff tee's registration (``HandoffWriter.finish``)
+    where the attempt streams its output, else None."""
     reporter = reporter or Reporter()
     conf = localize_task_conf(conf, task)
+    maybe_fail("reduce.task", conf)
     sk = conf.get_output_key_comparator().sort_key
     grouping = conf.get_output_value_grouping_comparator()
     gk = grouping.sort_key if grouping is not None else sk
-    segments = list(source.segments(task.partition))
+    segments: list = []
+    spill_dir = None
     try:
+        if hasattr(source, "chunk_bytes"):
+            base = conf.get("tpumr.task.local.dir")
+            if base:
+                spill_dir = os.path.join(base, f"copy-{task.attempt_id}")
+            else:
+                spill_dir = tempfile.mkdtemp(
+                    prefix=f"shuffle-{task.attempt_id}-")
+            copier = ShuffleCopier(
+                conf, source, task.num_maps, task.partition, spill_dir,
+                reporter,
+                on_fetch_failure=getattr(source, "on_fetch_failure", None),
+                abort_check=getattr(source, "abort_check", None))
+            segments = copier.copy_all()
+        else:
+            segments = list(source.segments(task.partition))
         engine = BoundedMerge(
             segments, sk, conf.sort_factor,
             run_dir=conf.get("tpumr.task.local.dir") or None,
@@ -64,6 +92,7 @@ def run_reduce_task(conf: Any, task: Task, source: Any,
             engine.close()
     finally:
         # whatever failed, reducer setup included, the segments are let go
+        # (the budget released, the copy's spills deleted)
         for seg in segments:
             close = getattr(seg, "close", None)
             if close is not None:
@@ -71,6 +100,8 @@ def run_reduce_task(conf: Any, task: Task, source: Any,
                     close()
                 except Exception:  # noqa: BLE001 — cleanup must not mask
                     pass
+        if spill_dir is not None:
+            shutil.rmtree(spill_dir, ignore_errors=True)
 
 
 def _reduce_merged(conf: Any, task: Task,

@@ -8,28 +8,45 @@ Counterpart of ``NodeRunner`` in ``tpumr/mapred/tasktracker.py``:
   ``mapred.tasktracker.reduce.tasks.maximum``, each a semaphore;
 - the status of every heartbeat (``:913`` there): the slots, the running
   count of each pool, the free device ids (``available_tpu_devices``,
-  derived from the running accelerator attempts), the host and every
-  attempt's :class:`TaskStatus`; the runner asks for work when any pool
-  has room;
+  derived from the running accelerator attempts), the host, every
+  attempt's :class:`TaskStatus` and the reduces' fetch-failure reports;
+  the runner asks for work when any pool has room;
 - the heartbeat loop (``:965-1144``): every
   ``tpumr.heartbeat.interval.ms``, the first beat marked as the initial
-  contact, the master's response id echoed back; terminal statuses are
-  dropped once a response arrived, and the response's actions applied
+  contact, the master's response id echoed back; terminal statuses and the
+  fetch-failure reports sent are dropped once a response arrived
+  (``:1120-1122``), and the response's actions applied
   (:meth:`NodeRunner._apply_action`: launch, kill, job cleanup); a beat
   that fails is retried at the next interval, its error kept on
   :attr:`NodeRunner.heartbeat_error` and logged once per distinct error;
 - a thread per attempt (``_launch``, ``_run_task_inner``, ``:1572-1697``):
   a map runs the port's ``map_task.run_map_task``, whose ``task.run_on_tpu``
   picks ``GpuMapRunner`` (the card ``cuda:tpu_device_id``) or the CPU
-  slot's runner, and registers its IFile for the shuffle; a reduce runs
-  ``reduce_task.run_reduce_task`` over a
-  ``shuffle_copier.RemoteSegmentSource``; output is committed through the
-  master's ``can_commit``. An exception fails the attempt, and its type,
-  message and traceback reach the master as the status's diagnostics;
-- :meth:`NodeRunner.get_map_output` (``:2139-2162``): one partition's bytes
-  of a map's IFile, served over RPC with the codec of the map output, by
-  which the reduce decodes them; a reduce's merge runs go under
-  ``tpumr.task.local.dir``, the job's ``shuffle`` directory (``:1364``);
+  slot's runner, and registers its output for the shuffle, its index
+  stamped with the attempt and its number (``:1598``); a reduce runs
+  ``reduce_task.run_reduce_task`` over a ``shuffle_copier.RemoteChunkSource``
+  (:meth:`NodeRunner._remote_fetch_factory`, ``:2269-2280``) whose fetch
+  failures the runner reports to the master
+  (:meth:`NodeRunner.report_fetch_failure`, ``:2063-2076``), and a
+  device-shuffled job's gang reduce runs ``device_shuffle.run_device_reduce``
+  over every map's dense output (``:1615-1623``, ``:2282-2294``); output is
+  committed through the master's ``can_commit``. An exception fails the
+  attempt, and its type, message and traceback reach the master as the
+  status's diagnostics;
+- :class:`MapLocator` (``:63-300``): the master's completion feed (map
+  outputs, or a pipeline's handoff partitions) folded by cursor into index
+  -> serving address, ``OBSOLETE`` events evicting; ``invalidate`` demotes
+  an address to a fallback kept until the master replaces or withdraws it;
+  the reduce's copier and the stream handoff both locate through it;
+- the shuffle server (``:2095-2232``): :meth:`NodeRunner.get_map_output`
+  (a partition whole), :meth:`NodeRunner.get_map_output_chunk` (a bounded
+  range, :func:`serve_chunk`, read through an ``io/fdcache.FdCache`` and
+  wire-compressed where that pays) and
+  :meth:`NodeRunner.get_map_output_dense` (a device-shuffled map's dense
+  file whole), each refusing the other kind of output; the serving seams
+  ``shuffle.serve[.m<i>|.a<n>]`` of ``utils/fi``; a reduce's copy spills
+  and merge runs go under ``tpumr.task.local.dir``, the job's ``shuffle``
+  directory (``:1364``);
 - the pipeline handoff: a streaming stage's reduces tee their output under
   the runner's ``handoff`` directory, outside the job's scratch tree
   (``:1371-1391``); only the attempt that won the commit registers its tee
@@ -47,12 +64,15 @@ CUDA raises at construction unless the conf asks for the CPU. It has
 (``n_tpu_devices``), and ``n_tpu_devices`` or 1 on the CPU, where its
 accelerator-slot maps take the kernels' plain torch versions.
 
-Left out (``ROADMAP.md``): process isolation, the hung-task reaper,
-userlogs, profiles, fault injection, device health and quarantine,
-chunked and batched map-output serving, dense serving for device-shuffled
-jobs, cooperative cancellation inside a running map
-(a killed attempt is reported KILLED when it ends), the lost-master
-backoff and the heartbeat delta encoding.
+Left out (``ROADMAP.md``): process isolation (so the umbilical's
+``umbilical_report_fetch_failure``), the hung-task reaper, userlogs,
+profiles, device health and quarantine, the batched map-output serving
+(``serve_batch``), the restart rebinding of ``_map_output_entry``, the
+locator's pooled connections (``RpcClientPool``: here each fetching thread
+keeps one ``RpcClient`` per address, and the locator closes them all),
+cooperative cancellation inside a running map (a killed attempt is
+reported KILLED when it ends), the lost-master backoff and the heartbeat
+delta encoding.
 """
 
 from __future__ import annotations
@@ -65,20 +85,26 @@ import threading
 import time
 import traceback
 
+from typing import Any, Callable
+
 from tpumr_torch.device import DEVICE_KEY, select_device
 from tpumr_torch.io import ifile
+from tpumr_torch.io.compress import wire_compress
+from tpumr_torch.io.fdcache import FdCache
 from tpumr_torch.ipc.rpc import RpcClient, RpcServer
+from tpumr_torch.mapred import device_shuffle
 from tpumr_torch.mapred.api import Reporter
 from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.jobtracker import PROTOCOL_VERSION
 from tpumr_torch.mapred.map_task import run_map_task
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.reduce_task import run_reduce_task
-from tpumr_torch.mapred.shuffle_copier import (RemoteSegmentSource,
+from tpumr_torch.mapred.shuffle_copier import (RemoteChunkSource,
                                                TaskKilledError)
 from tpumr_torch.mapred.task import Task, TaskPhase, TaskState, TaskStatus
 from tpumr_torch.pipeline.handoff import (SERVE_PREFIX, HandoffSource,
-                                          serve_key)
+                                          make_handoff_source, serve_key)
+from tpumr_torch.utils.fi import maybe_fail
 
 #: seconds ``stop`` waits for each of the runner's threads
 JOIN_TIMEOUT_S = 10.0
@@ -86,6 +112,194 @@ JOIN_TIMEOUT_S = 10.0
 PURGE_EVERY_BEATS = 20
 
 _log = logging.getLogger(__name__)
+
+
+class OutputWithdrawn(LookupError):
+    """The index's copy was withdrawn and nothing replaced it (a locator
+    built with ``withdrawn_is_final``: a handoff partition is never
+    rerun)."""
+
+
+class MapLocator:
+    """Where each map's output is served: the master's append-only
+    completion feed (``events_fn(cursor)`` returns the events from
+    ``cursor``) folded into index -> latest event. An ``OBSOLETE`` event
+    evicts the attempt it names (a tombstone for an attempt not cached
+    does nothing). ``locator(index)`` blocks until the index has an
+    address and returns an ``RpcClient`` to it, one per (thread, address).
+
+    :meth:`invalidate` demotes a cached address to a fallback: the next
+    resolve polls for a fresh event first, and with none it takes the
+    fallback back, since the fault may be on this reducer's side and the
+    cursor-based feed never sends the old event again; an ``OBSOLETE`` for
+    it kills the fallback too. After 25 polls in a row that brought
+    nothing, the cursor rewinds to 0 (folding is idempotent). ``on_wait``,
+    where set, is called at each poll of a blocked resolve (the node
+    runner raises there when the attempt was killed). Thread-safe: the
+    feed is polled under one lock, outside the cache's."""
+
+    def __init__(self, events_fn: Callable[[int], "list[dict]"],
+                 poll_s: float = 0.2, timeout_s: float = 600.0,
+                 withdrawn_is_final: bool = False) -> None:
+        self._events_fn = events_fn
+        self._poll_s = poll_s
+        self._timeout_s = timeout_s
+        self._withdrawn_is_final = withdrawn_is_final
+        self.on_wait: "Callable[[], None] | None" = None
+        self._events: "dict[int, dict]" = {}
+        #: invalidated addresses, kept until replaced or withdrawn
+        self._stale: "dict[int, dict]" = {}
+        #: indexes whose copy was withdrawn and not replaced
+        self._withdrawn: "set[int]" = set()
+        self._seen = 0
+        self._empty_polls = 0
+        self._clients: "dict[tuple[int, str], RpcClient]" = {}
+        self._closed = False
+        self._cache_lock = threading.Lock()
+        self._poll_lock = threading.Lock()
+
+    def _fold(self, fresh: "list[dict]") -> None:
+        """Apply a batch of events. Caller holds ``_cache_lock``."""
+        self._seen += len(fresh)
+        for e in fresh:
+            idx = int(e["map_index"])
+            if e.get("status") == "OBSOLETE":
+                cur = self._events.get(idx)
+                if cur is not None and cur["attempt_id"] == e["attempt_id"]:
+                    del self._events[idx]
+                st = self._stale.get(idx)
+                if st is not None and st["attempt_id"] == e["attempt_id"]:
+                    del self._stale[idx]   # withdrawn: no fallback now
+                if idx not in self._events and idx not in self._stale:
+                    self._withdrawn.add(idx)
+            else:
+                self._events[idx] = e
+                self._stale.pop(idx, None)
+                self._withdrawn.discard(idx)
+
+    def _entry(self, map_index: int) -> "dict | None":
+        """Caller holds ``_cache_lock``."""
+        e = self._events.get(map_index)
+        return e if e is not None else self._stale.get(map_index)
+
+    def attempt_of(self, map_index: int) -> str:
+        """The attempt whose output the cached (or fallback) address
+        serves: what a fetch-failure report names."""
+        with self._cache_lock:
+            e = self._entry(map_index)
+            return e["attempt_id"] if e is not None else ""
+
+    def addr_of(self, map_index: int) -> str:
+        with self._cache_lock:
+            e = self._entry(map_index)
+            return str(e["shuffle_addr"]) if e is not None else ""
+
+    def size_of(self, map_index: int) -> int:
+        """Output bytes the cached event announced (0: unknown)."""
+        with self._cache_lock:
+            e = self._entry(map_index)
+            return int(e.get("output_bytes", 0) or 0) if e is not None else 0
+
+    def invalidate(self, map_index: int) -> None:
+        with self._cache_lock:
+            e = self._events.pop(map_index, None)
+            if e is not None:
+                self._stale[map_index] = e
+
+    def __call__(self, map_index: int) -> RpcClient:
+        return self.client(self.resolve(map_index))
+
+    def client(self, addr: str) -> RpcClient:
+        """This thread's client to ``addr``."""
+        key = (threading.get_ident(), addr)
+        with self._cache_lock:
+            if self._closed:
+                raise RuntimeError("map locator closed")
+            cli = self._clients.get(key)
+            if cli is None:
+                host, port = addr.rsplit(":", 1)
+                cli = self._clients[key] = RpcClient(host, int(port))
+            return cli
+
+    def resolve(self, map_index: int) -> str:
+        """Block until the index has an address ("host:port") and return
+        it; ``TimeoutError`` after ``timeout_s``."""
+        deadline = time.monotonic() + self._timeout_s
+        while True:
+            with self._cache_lock:
+                e = self._events.get(map_index)
+                if e is not None:
+                    return str(e["shuffle_addr"])
+            with self._poll_lock:
+                with self._cache_lock:
+                    cached = map_index in self._events
+                if cached:         # another thread's poll brought it
+                    continue
+                try:
+                    fresh = self._events_fn(self._seen)
+                except Exception:  # noqa: BLE001 — the master is away for
+                    fresh = []     # a moment: poll again until the deadline
+                with self._cache_lock:
+                    self._fold(fresh)
+                    if fresh:
+                        self._empty_polls = 0
+                    cached = map_index in self._events
+            if cached:
+                continue
+            with self._cache_lock:
+                self._empty_polls += 1
+                if self._empty_polls >= 25:
+                    self._empty_polls = 0
+                    self._seen = 0
+                stale = self._stale.pop(map_index, None)
+                if stale is not None:
+                    # nothing fresh: the demoted address is still the best
+                    # known one until the master replaces or withdraws it
+                    self._events[map_index] = stale
+                    continue
+                if self._withdrawn_is_final and \
+                        map_index in self._withdrawn:
+                    raise OutputWithdrawn(f"output {map_index} withdrawn")
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"map {map_index} output never became available")
+            if self.on_wait is not None:
+                self.on_wait()
+            time.sleep(self._poll_s)
+
+    def close(self) -> None:
+        """Close every client; a later ``client`` call raises."""
+        with self._cache_lock:
+            self._closed = True
+            clients, self._clients = list(self._clients.values()), {}
+        for cli in clients:
+            cli.close()
+
+
+def make_map_locator(events_fn: Callable[[int], "list[dict]"],
+                     poll_s: float = 0.2, timeout_s: float = 600.0,
+                     withdrawn_is_final: bool = False) -> MapLocator:
+    return MapLocator(events_fn, poll_s=poll_s, timeout_s=timeout_s,
+                      withdrawn_is_final=withdrawn_is_final)
+
+
+def serve_chunk(fds: FdCache, path: str, index: dict, partition: int,
+                offset: int, max_bytes: int, max_chunk: int,
+                wire: str = "none") -> dict:
+    """One bounded chunk of one partition's payload, read off the fd
+    cache: ``min(max_bytes, max_chunk, what remains)`` bytes from
+    ``offset`` (payload-relative), with the payload's length (``total``),
+    its raw length, its codec and the length covered (``n``); compressed
+    for the wire where that pays (``io/compress.wire_compress``)."""
+    off, raw_len, part_len = index["partitions"][partition]
+    payload_len = part_len - 4          # less the length prefix
+    offset = max(0, int(offset))
+    n = max(0, min(int(max_bytes), max_chunk, payload_len - offset))
+    data = fds.pread(path, n, off + 4 + offset)
+    out = {"data": data, "total": payload_len, "raw": raw_len,
+           "codec": index.get("codec", "none"), "n": n}
+    wire_compress(out, wire)
+    return out
 
 
 class NodeRunner:
@@ -132,6 +346,11 @@ class NodeRunner:
         self._kill_requested: "set[str]" = set()
         #: (job id, map index) -> (IFile path, index) served to reduces
         self.map_outputs: "dict[tuple[str, int], tuple[str, dict]]" = {}
+        #: the reduces' fetch-failure reports, sent with the next beat
+        self._fetch_failures: "list[dict]" = []
+        #: open spill files of the chunk server
+        self._spill_fds = FdCache(conf.get_int("tpumr.shuffle.fd.cache.size",
+                                               64))
         self.job_confs: "dict[str, JobConf]" = {}
         self.local_root = tempfile.mkdtemp(
             prefix=f"tpumr_torch-{self.name}-",
@@ -173,6 +392,12 @@ class NodeRunner:
             t.join(JOIN_TIMEOUT_S)
         self._server.stop()
         self.master.close()
+        with self.lock:
+            sources = list(self._handoff_sources.values())
+            self._handoff_sources.clear()
+        for src in sources:
+            src.close()
+        self._spill_fds.invalidate()
         shutil.rmtree(self.local_root, ignore_errors=True)
 
     @property
@@ -228,6 +453,7 @@ class NodeRunner:
                 "available_memory_mb": avail_mb,
                 "task_statuses": [st.to_dict()
                                   for st in self.running.values()],
+                "fetch_failures": list(self._fetch_failures),
             }
 
     # ------------------------------------------------------------ heartbeat
@@ -254,9 +480,10 @@ class NodeRunner:
         self._initial_contact = False
         self._response_id = resp["response_id"]
         with self.lock:
-            # the master has these terminal statuses now; a task that
-            # ended while the call was in flight was sent as RUNNING and
-            # stays for the next beat
+            # the master has these reports and terminal statuses now; a
+            # task that ended while the call was in flight was sent as
+            # RUNNING and stays for the next beat
+            del self._fetch_failures[:len(full["fetch_failures"])]
             for sd in full["task_statuses"]:
                 if sd["state"] in TaskState.TERMINAL:
                     self.running.pop(sd["attempt_id"], None)
@@ -285,9 +512,12 @@ class NodeRunner:
             with self.lock:
                 for k in [k for k in self.map_outputs if k[0] == key]:
                     del self.map_outputs[k]
-                self._handoff_sources.pop(job_id, None)
-            shutil.rmtree(os.path.join(self.local_root, "handoff", job_id),
-                          ignore_errors=True)
+                src = self._handoff_sources.pop(job_id, None)
+            if src is not None:
+                src.close()
+            d = os.path.join(self.local_root, "handoff", job_id)
+            self._spill_fds.invalidate(d + os.sep)
+            shutil.rmtree(d, ignore_errors=True)
 
     def _apply_action(self, action: dict) -> None:
         kind = action.get("type")
@@ -303,8 +533,9 @@ class NodeRunner:
                 for key in [k for k in self.map_outputs if k[0] == job_id]:
                     del self.map_outputs[key]
                 self.job_confs.pop(job_id, None)
-            shutil.rmtree(os.path.join(self.local_root, job_id),
-                          ignore_errors=True)
+            d = os.path.join(self.local_root, job_id)
+            self._spill_fds.invalidate(d + os.sep)
+            shutil.rmtree(d, ignore_errors=True)
 
     # ------------------------------------------------------------ tasks
 
@@ -378,20 +609,33 @@ class NodeRunner:
             if task.is_map:
                 path, index = run_map_task(conf, task, local_dir, reporter)
                 if path:
+                    # stamped with the attempt that made it: the serving
+                    # seams target attempt generations, and a re-run
+                    # registers over the lost attempt's entry
+                    index = dict(index, attempt=aid,
+                                 attempt_no=task.attempt_id.attempt)
                     with self.lock:
                         self.map_outputs[(job_id, task.partition)] = \
                             (path, index)
             else:
-                source = RemoteSegmentSource(
-                    job_id, task.num_maps,
-                    lambda cursor: self.master.call(
-                        "get_map_completion_events", job_id, cursor),
-                    poll_s=conf.get_int("tpumr.shuffle.poll.ms",
-                                        200) / 1000.0,
-                    timeout_s=conf.get_int("tpumr.shuffle.timeout.ms",
-                                           600_000) / 1000.0,
-                    abort_check=lambda: self._killed(aid))
-                handoff = run_reduce_task(conf, task, source, reporter)
+                locator = self._map_locator(job_id, aid)
+                try:
+                    if device_shuffle.is_device_shuffle(conf):
+                        # the gang task: every map's dense output, sorted
+                        # on this runner's device
+                        device_shuffle.run_device_reduce(
+                            conf, task,
+                            self._remote_dense_fetch_factory(job_id,
+                                                             locator),
+                            reporter)
+                    else:
+                        handoff = run_reduce_task(
+                            conf, task,
+                            self._remote_fetch_factory(job_id, task,
+                                                       locator),
+                            reporter)
+                finally:
+                    locator.close()
                 status.phase = TaskPhase.REDUCE
             committed = self._commit(conf, task)
             if handoff is not None:
@@ -429,25 +673,72 @@ class NodeRunner:
             except OSError:
                 pass
             return
+        index = dict(handoff["index"], attempt=str(task.attempt_id),
+                     attempt_no=task.attempt_id.attempt)
         with self.lock:
             self.map_outputs[(serve_key(job_id), task.partition)] = \
-                (handoff["path"], handoff["index"])
+                (handoff["path"], index)
 
     def _handoff_source(self, upstream_job: str) -> HandoffSource:
         """The stream source of one upstream job, shared by every map of
-        the downstream stage on this runner: the master's handoff feed,
-        folded by one cursor."""
+        the downstream stage on this runner: a :class:`MapLocator` over
+        the master's handoff feed, folded by one cursor."""
         with self.lock:
             src = self._handoff_sources.get(upstream_job)
             if src is None:
-                src = self._handoff_sources[upstream_job] = HandoffSource(
-                    upstream_job,
-                    lambda cursor: self.master.call(
-                        "get_handoff_completion_events", upstream_job,
-                        cursor),
-                    poll_s=self.conf.get_int("tpumr.shuffle.poll.ms",
-                                             200) / 1000.0)
+                src = self._handoff_sources[upstream_job] = \
+                    make_handoff_source(
+                        upstream_job,
+                        lambda cursor: self.master.call(
+                            "get_handoff_completion_events", upstream_job,
+                            cursor),
+                        poll_s=self.conf.get_int("tpumr.shuffle.poll.ms",
+                                                 200) / 1000.0)
             return src
+
+    def _map_locator(self, job_id: str, attempt_id: str) -> MapLocator:
+        """A reduce attempt's locator over the job's map-completion feed;
+        a blocked resolve raises ``TaskKilledError`` once the attempt is
+        killed or the runner stops."""
+        locator = make_map_locator(
+            lambda cursor: self.master.call("get_map_completion_events",
+                                            job_id, cursor),
+            poll_s=self.conf.get_int("tpumr.shuffle.poll.ms", 200) / 1000.0,
+            timeout_s=self.conf.get_int("tpumr.shuffle.timeout.ms",
+                                        600_000) / 1000.0)
+
+        def on_wait() -> None:
+            if self._killed(attempt_id):
+                raise TaskKilledError(f"{attempt_id} stopped while waiting "
+                                      "for map outputs")
+
+        locator.on_wait = on_wait
+        return locator
+
+    def _remote_fetch_factory(self, job_id: str, task: Task,
+                              locator: MapLocator) -> RemoteChunkSource:
+        """The reduce's chunk source, whose fetch failures are reported to
+        the master and whose copy stops when the attempt is killed."""
+        aid = str(task.attempt_id)
+        src = RemoteChunkSource(self._job_conf(job_id), job_id, locator)
+        src.on_fetch_failure = (
+            lambda map_index, map_attempt:
+            self.report_fetch_failure(aid, map_attempt))
+        src.abort_check = lambda: self._killed(aid)
+        return src
+
+    @staticmethod
+    def _remote_dense_fetch_factory(job_id: str, locator: MapLocator
+                                    ) -> device_shuffle.DenseFetchFn:
+        """The gang reduce's fetch: each map's whole dense output. A fetch
+        that fails fails the attempt (no report, as in the JAX package)."""
+
+        def fetch(map_index: int):
+            out = locator(map_index).call("get_map_output_dense", job_id,
+                                          map_index)
+            return device_shuffle.parse_dense_bytes(out["data"])
+
+        return fetch
 
     def _commit(self, conf: JobConf, task: Task) -> bool:
         """Promote the attempt's output files, if it wrote any, when the
@@ -466,14 +757,76 @@ class NodeRunner:
 
     # ------------------------------------------------------------ shuffle
 
-    def get_map_output(self, job_id: str, map_index: int,
-                       partition: int) -> dict:
-        """One partition's segment of a map's IFile, as it lies on disk."""
+    def report_fetch_failure(self, reduce_attempt: str,
+                             map_attempt: str) -> None:
+        """A reduce here could not fetch ``map_attempt``'s output: the
+        report goes with the next heartbeat; the master counts reducers
+        and re-executes the map, while the reduce waits for the re-run."""
+        if not map_attempt:
+            return   # never resolved: nothing to name
+        with self.lock:
+            self._fetch_failures.append({"reduce_attempt": reduce_attempt,
+                                         "map_attempt": map_attempt})
+
+    def _maybe_fail_serve(self, job_id: str, map_index: int,
+                          index: dict) -> None:
+        """The serving side's fault seams, on the job's conf:
+        ``shuffle.serve``, ``shuffle.serve.m<i>`` (one map's output) and
+        ``shuffle.serve.a<n>`` (an attempt generation:
+        ``tpumr.fi.shuffle.serve.a0.probability=1`` makes every map's first
+        output unfetchable while its re-run serves)."""
+        with self.lock:
+            conf = self.job_confs.get(job_id)
+        conf = conf if conf is not None else self.conf
+        maybe_fail("shuffle.serve", conf)
+        maybe_fail(f"shuffle.serve.m{map_index}", conf)
+        attempt_no = index.get("attempt_no")
+        if attempt_no is not None:
+            maybe_fail(f"shuffle.serve.a{attempt_no}", conf)
+
+    def _entry(self, job_id: str, map_index: int, dense: bool
+               ) -> "tuple[str, dict]":
+        """(path, index) of a served output of the kind asked for, past
+        the serving seams."""
         with self.lock:
             ent = self.map_outputs.get((job_id, int(map_index)))
         if ent is None:
             raise KeyError(f"no map output for {job_id} map {map_index}")
         path, index = ent
+        if not dense:
+            self._maybe_fail_serve(job_id, map_index, index)
+        if bool(index.get("dense")) != dense:
+            raise ValueError(
+                f"map output for {job_id} map {map_index} is "
+                + ("not dense: fetch with get_map_output" if dense else
+                   "dense (device-shuffled job): fetch with "
+                   "get_map_output_dense"))
+        return path, index
+
+    def get_map_output(self, job_id: str, map_index: int,
+                       partition: int) -> dict:
+        """One partition's segment of a map's IFile, as it lies on disk."""
+        path, index = self._entry(job_id, map_index, dense=False)
         with open(path, "rb") as f:
             data = ifile.partition_bytes(f, index, int(partition))
         return {"data": data, "codec": index.get("codec", "none")}
+
+    #: the most one chunk response carries, whatever the client asks
+    MAX_CHUNK_BYTES = 4 << 20
+
+    def get_map_output_chunk(self, job_id: str, map_index: int,
+                             partition: int, offset: int, max_bytes: int,
+                             wire: str = "none") -> dict:
+        """A bounded range of one partition's payload (:func:`serve_chunk`):
+        ``offset`` is payload-relative, ``total`` the payload's length and
+        ``raw`` its decompressed length, which the reduce's RAM budget
+        weighs; ``wire`` names a codec the client decodes."""
+        path, index = self._entry(job_id, map_index, dense=False)
+        return serve_chunk(self._spill_fds, path, index, int(partition),
+                           offset, max_bytes, self.MAX_CHUNK_BYTES, wire)
+
+    def get_map_output_dense(self, job_id: str, map_index: int) -> dict:
+        """A device-shuffled map's dense output file, whole and as it is."""
+        path, _index = self._entry(job_id, map_index, dense=True)
+        with open(path, "rb") as f:
+            return {"data": f.read()}

@@ -14,29 +14,31 @@ The read side (:class:`PipelineHandoffInputFormat` over
 reduce partition. It locates the partition on the master's handoff feed
 (``JobMaster.get_handoff_completion_events``: the map-completion dialect,
 ``map_index`` holding the partition, ``OBSOLETE`` tombstones for the
-copies of a lost runner) and fetches the whole segment from the runner
-serving it. A partition the stream cannot serve falls back to the upstream
+copies of a lost runner) through the runner's :class:`HandoffSource`
+(:func:`make_handoff_source`, ``:371``: the shuffle's
+``tasktracker.MapLocator`` over that feed, one locate slice at a time),
+and streams the segment in chunks from the runner serving it
+(``shuffle_copier.RemoteChunkSource.fetch_chunks``). A partition the
+stream cannot serve, withdrawn or failing, falls back to the upstream
 stage's committed SequenceFile part file, which holds the same records: the
 committed output stays the truth. Each split adds one to the ``Pipeline``
 group's ``HANDOFF_STREAMED_SPLITS`` or ``HANDOFF_DFS_FALLBACK_SPLITS``.
 
-Left out: the chunked and pipelined fetch (``get_map_output_chunk``,
-leased connections), the wire codec, and the reference's ``MapLocator``:
-:class:`HandoffSource` folds the feed with the shuffle's
-``EventFold``, and fetches with its ``fetch_segment``.
+Left out: the pipelined chunk window (``call_begin``/``call_finish`` on
+leased connections, ``:585-695``): chunks are asked for one at a time.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
-import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator
 
 from tpumr_torch.io import ifile
 from tpumr_torch.io.writable import deserialize, serialize
-from tpumr_torch.mapred.shuffle_copier import EventFold, fetch_segment
+from tpumr_torch.mapred.shuffle_copier import RemoteChunkSource
 from tpumr_torch.mapred.split import InputSplit
 
 #: one locate attempt's budget before the reader tries the fallback
@@ -147,46 +149,48 @@ def build_handoff_splits(upstream_job: str, num_reduces: int,
     return out
 
 
+@dataclass
 class HandoffSource:
     """The runner's stream source for one upstream job, shared by the
-    downstream maps on that runner: the master's handoff feed folded by
-    cursor (``shuffle_copier.EventFold``) into partition -> serving
-    address. Thread-safe."""
+    downstream maps on that runner: a ``tasktracker.MapLocator`` over the
+    master's handoff feed, partition -> serving address."""
 
-    def __init__(self, upstream_job: str,
-                 events_fn: Callable[[int], "list[dict]"],
-                 poll_s: float = 0.2) -> None:
-        self.upstream_job = upstream_job
-        self.poll_s = poll_s
-        self._lock = threading.Lock()
-        self._fold = EventFold(events_fn)
-        #: partitions whose announced copy was withdrawn
-        self._withdrawn: "set[int]" = set()
+    locator: Any = None
+    upstream_job: str = ""
 
     def locate(self, partition: int) -> "str | None":
         """The serving address of ``partition``; None where its copy was
         withdrawn (its runner was lost: a reduce that committed is never
         rerun, so only the fallback can serve it); ``TimeoutError`` when it
         is not announced within the slice."""
-        deadline = time.monotonic() + _LOCATE_SLICE_S
-        while True:
-            with self._lock:
-                self._withdrawn |= self._fold.poll()
-                addr = self._fold.addr.get(partition)
-                if addr is None and partition in self._withdrawn:
-                    return None
-            if addr is not None:
-                return addr
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{self.upstream_job}: partition "
-                                   f"{partition} not announced")
-            time.sleep(self.poll_s)
+        from tpumr_torch.mapred.tasktracker import OutputWithdrawn
+        try:
+            return self.locator.resolve(partition)
+        except OutputWithdrawn:
+            return None
 
     def invalidate(self, partition: int) -> None:
-        """The address failed to serve: forget it until announced again."""
-        with self._lock:
-            self._fold.addr.pop(partition, None)
-            self._withdrawn.add(partition)
+        """The address failed to serve: the locator keeps it only as a
+        fallback until the master replaces or withdraws it."""
+        self.locator.invalidate(partition)
+
+    def close(self) -> None:
+        self.locator.close()
+
+
+def make_handoff_source(upstream_job: str,
+                        events_fn: Callable[[int], "list[dict]"],
+                        poll_s: float = 0.2) -> HandoffSource:
+    """The runner's source: a ``MapLocator`` over the handoff feed whose
+    resolve gives up after one short slice, so that the reader can look
+    for the committed part between slices, and which takes a withdrawn
+    partition as gone."""
+    from tpumr_torch.mapred.tasktracker import make_map_locator
+    return HandoffSource(
+        locator=make_map_locator(events_fn, poll_s=poll_s,
+                                 timeout_s=_LOCATE_SLICE_S,
+                                 withdrawn_is_final=True),
+        upstream_job=upstream_job)
 
 
 class PipelineHandoffInputFormat:
@@ -215,7 +219,7 @@ class PipelineHandoffInputFormat:
         deadline = time.monotonic() + timeout_s
         while True:
             if src is not None:
-                records = self._try_stream(src, split)
+                records = self._try_stream(src, split, conf)
                 if records is not None:
                     self._count(reporter, COUNTER_STREAMED)
                     return records
@@ -235,30 +239,34 @@ class PipelineHandoffInputFormat:
             reporter.incr_counter(COUNTER_GROUP, name)
 
     @staticmethod
-    def _try_stream(src: HandoffSource, split: HandoffSplit
+    def _try_stream(src: HandoffSource, split: HandoffSplit, conf: Any
                     ) -> "Iterator[tuple[Any, Any]] | None":
         """One bounded attempt at the stream: locate the serving runner on
-        the handoff feed and fetch the partition's segment whole. None: not
+        the handoff feed and read the partition's first chunk. None: not
         (yet) streamable, and the caller tries the fallback."""
-        from tpumr_torch.ipc.rpc import RpcClient
         try:
             addr = src.locate(split.partition)
         except TimeoutError:
             return None
         if addr is None:
             return None
-        host, port = addr.rsplit(":", 1)
-        client = RpcClient(host, int(port), retries=0)
+        fetch = RemoteChunkSource(conf, serve_key(split.upstream_job),
+                                  lambda _p: src.locator.client(addr))
+        chunks = fetch.fetch_chunks(split.partition, 0)
         try:
-            records = fetch_segment(client, serve_key(split.upstream_job),
-                                    split.partition, 0)
+            first = next(chunks)
         except Exception:  # noqa: BLE001 — the runner is gone or lost the
-            # entry: forget the address and read the committed part file
+            # entry: demote the address and read the committed part file
             src.invalidate(split.partition)
             return None
-        finally:
-            client.close()
-        return ((deserialize(kb), deserialize(vb)) for kb, vb in records)
+
+        def gen() -> Iterator[tuple[Any, Any]]:
+            payloads = (c["data"] for c in itertools.chain([first], chunks))
+            for kb, vb in ifile.iter_chunked_segment(
+                    payloads, first.get("codec", "none")):
+                yield deserialize(kb), deserialize(vb)
+
+        return gen()
 
     @staticmethod
     def _try_fallback(split: HandoffSplit, conf: Any
