@@ -29,8 +29,8 @@ round 0 (the reducer pre-seeds the next round's on the card) and launches
 the fused kernel once per split; rounds 0 and 9 are held against a float64
 Lloyd step. The same ten rounds again with the caches cleared before each
 round must give byte-identical centroids, and the examples kmeans program
-(python -m tpumr_torch.cli examples kmeans, in a process of its own) must
-give round 3's centroids exactly. Hybrid: bench.py's hybrid phase on the
+(python -m tpumr_torch.cli examples kmeans, in a process of its own,
+beside the rounds) must give round 3's centroids exactly. Hybrid: bench.py's hybrid phase on the
 port's MiniMRCluster (a job master and one node runner with 3 CPU map slots
 and 1 GPU map slot, RPC over localhost, optional scheduling on): K-Means
 over 32,000,000 x 16 points from default_rng(4) in 8 maps, three times
@@ -41,7 +41,7 @@ and committing the centroids of a float64 Lloyd step; kmeans_round2's
 acceleration factor (mean CPU map seconds over mean GPU map seconds) must
 exceed 1; then a 4,096^2 f32 matmul in 4 maps to SequenceFiles against a
 float64 product. Pipeline: the pipeline engine on the hybrid phase's points
-(written again), on a MiniMRCluster of one GPU slot and no CPU slot: ten
+(the same file), on a MiniMRCluster of one GPU slot and no CPU slot: ten
 K-Means rounds as one PipelineClient submission (a loop node whose
 predicate never holds, versioned centroid files, KMeansCentroidUpdateReducer)
 against ten JobClient submissions with the centroid caches cleared before
@@ -112,7 +112,25 @@ process's work, and their times and those of the work beside them are
 taken under that load: teragen of 10^8 beside the text and spill phases,
 the daemons beside the pipeline's TeraSort chain, the CLI's pi beside
 wordcount and grep, secondarysort and join beside the spill jobs, and the
-CLI's TeraSort programs beside the shuffles at 2,000,000. It
+CLI's TeraSort programs beside the shuffles at 2,000,000, and the rounds'
+examples kmeans program beside the rounds and their float64 oracles.
+
+Accel_fault, the accelerator fault tolerance on the card: after the kernel
+checks, a real OOM on cuda:0 must class oom and a real refused launch of
+kmeans_assign_partials (more blocks than tiles: cudaErrorInvalidValue)
+device, after which the CUDA probe passes and a fused launch matches its
+plain version. On the hybrid phase's cluster, over the hybrid points'
+first 4 splits: three injected faults on card 0 (tpumr.fi.tpu.execute.d0)
+quarantine it, the runner advertising 0 GPU slots at once, the probe
+(every 200 ms) restores it and the map launches kmeans_assign_partials
+there; then every GPU attempt failing (tpumr.fi.tpu.execute) demotes the
+map and quarantines the job's GPU pass, and the job succeeds on the CPU
+slots with no fused launch; both jobs' centroids against a float64 Lloyd
+step. Through the pipeline phase's daemons: examples sleep --tpu
+--hang-map 0 with mapred.task.timeout=2000 must have exactly one attempt
+reaped (class timeout), map 0 succeed on attempt 1 and no task thread stay
+on the runner. Every other cluster job (hybrid, pipeline, the daemons',
+cluster_shuffle) must show no demotion and no reap. It
 prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -231,6 +249,14 @@ PIPE_TERA_ROWS, PIPE_TERA_MAPS, PIPE_TERA_REDUCES = 1_000_000, 4, 2
 PIPE_TIMEOUT_S = 600
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W), FLOP/s
 PEAK_BF16_FLOP_PER_S = 989e12
+#: the accel_fault phase: the hybrid points' first ACCEL_SPLITS splits for
+#: its demotion and quarantine jobs, the node runner's probe interval, the
+#: device faults that quarantine a card (the default threshold), the
+#: reaper's timeout for the daemons' sleep job, and the shape of the fused
+#: launch that must match its plain version after the real faults
+ACCEL_SPLITS, ACCEL_PROBE_MS, ACCEL_DEVICE_FAULTS = 4, 200, 3
+ACCEL_SLEEP_TIMEOUT_MS = 2000
+ACCEL_CHECK_N = 1_000_000
 #: the fused kernel's sums against a float64 sum over its own ids: within
 #: this times the sum of |x| of the cluster's points, per dimension (f32
 #: sums of at most a few thousand terms in a row, then in order)
@@ -874,8 +900,8 @@ def rounds_phase(work: str, n: int, km) -> dict:
     ROUNDS versioned rounds (no clear between them), rounds 0 and 9 against
     a float64 Lloyd step each; the same rounds with the caches cleared
     before each round, byte-identical (bench.py:379-381); and the examples
-    kmeans program for CLI_ITERATIONS iterations in a process of its own,
-    equal to the versioned rounds' file of that round."""
+    kmeans program for CLI_ITERATIONS iterations in a process of its own
+    beside them, equal to the versioned rounds' file of that round."""
     from tpumr_torch.examples.basic import load_npy_rows
     from tpumr_torch.fs.filesystem import FileSystem
     points = f"file://{work}/points.npy"
@@ -883,43 +909,51 @@ def rounds_phase(work: str, n: int, km) -> dict:
     for prefix in ("", "seq-"):
         np.save(os.path.join(work, f"{prefix}cents-r0.npy"),
                 seeds.astype(np.float32))
-    zero_launch_counts(km)               # the rounds' count starts
-    t = time.monotonic()
-    versioned = run_rounds(work, "", n, km, clear_each_round=False)
-    sequential = run_rounds(work, "seq-", n, km, clear_each_round=True)
-    launches = launch_counts(km)
-    secs = time.monotonic() - t
-    km.clear_pipeline_caches()           # teardown: one sweep
-    final = []
-    for prefix in ("", "seq-"):
-        with open(os.path.join(work, f"{prefix}cents-r{ROUNDS}.npy"),
-                  "rb") as f:
-            final.append(f.read())
-    check(final[0] == final[1], "sequential rounds' final centroids differ "
-          "from the versioned rounds'")
-
-    oracles = {}
-    for r in (0, ROUNDS - 1):
-        cents = np.load(os.path.join(work, f"cents-r{r}.npy"))
-        got = np.load(os.path.join(work, f"cents-r{r + 1}.npy"))
-        want = oracle(work, n, cents, km, compare=False)["centroids"]
-        err = np.abs(got - want)
-        oracles[r] = float(err.max())
-        check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
-                          np.abs(want))),
-              f"round {r}: centroids off a float64 Lloyd step by up to "
-              f"{err.max():.3g}")
-
     out = os.path.join(work, "cli-out")
     cmd = [sys.executable, "-m", "tpumr_torch.cli", "examples", "kmeans",
            points, f"file://{out}", "-k", str(K), "-i", str(CLI_ITERATIONS),
            "--split-rows", str(ROWS_PER_SPLIT)]
-    t_cli = time.monotonic()
-    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
-        __file__)), capture_output=True, text=True, timeout=600)
-    t_cli = time.monotonic() - t_cli
-    check(proc.returncode == 0, f"examples kmeans exited "
-          f"{proc.returncode}: {proc.stderr[-2000:]}")
+
+    def cli() -> float:
+        t = time.monotonic()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"examples kmeans exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return time.monotonic() - t
+
+    # the program, a process of its own that seeds from the points as the
+    # rounds do, runs beside the rounds and their oracles
+    beside = Beside(cli)
+    try:
+        zero_launch_counts(km)               # the rounds' count starts
+        t = time.monotonic()
+        versioned = run_rounds(work, "", n, km, clear_each_round=False)
+        sequential = run_rounds(work, "seq-", n, km, clear_each_round=True)
+        launches = launch_counts(km)
+        secs = time.monotonic() - t
+        km.clear_pipeline_caches()           # teardown: one sweep
+        final = []
+        for prefix in ("", "seq-"):
+            with open(os.path.join(work, f"{prefix}cents-r{ROUNDS}.npy"),
+                      "rb") as f:
+                final.append(f.read())
+        check(final[0] == final[1], "sequential rounds' final centroids "
+              "differ from the versioned rounds'")
+
+        oracles = {}
+        for r in (0, ROUNDS - 1):
+            cents = np.load(os.path.join(work, f"cents-r{r}.npy"))
+            got = np.load(os.path.join(work, f"cents-r{r + 1}.npy"))
+            want = oracle(work, n, cents, km, compare=False)["centroids"]
+            err = np.abs(got - want)
+            oracles[r] = float(err.max())
+            check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
+                              np.abs(want))),
+                  f"round {r}: centroids off a float64 Lloyd step by up to "
+                  f"{err.max():.3g}")
+    finally:
+        t_cli = beside.join()
     cli_final = np.load(os.path.join(out, "centroids.npy"))
     want = np.load(os.path.join(work, f"cents-r{CLI_ITERATIONS}.npy"))
     check(cli_final.dtype == want.dtype and
@@ -936,6 +970,272 @@ def rounds_phase(work: str, n: int, km) -> dict:
                "cli_seconds": t_cli, "cli_equal_round": CLI_ITERATIONS}
     log("rounds_summary " + json.dumps(summary))
     return summary
+
+
+def check_no_faults(master, label: str) -> dict:
+    """accel_fault (5): no job a cluster ran was demoted or reaped: the
+    master's counts and every job's TPU_DEMOTIONS and TASKS_REAPED_TIMEOUT
+    are 0."""
+    from tpumr_torch.core.counters import JobCounter
+    metrics = master.get_metrics()
+    with master.lock:
+        jobs = list(master.jobs.values())
+    bad = {k: v for k, v in metrics.items() if v}
+    for jip in jobs:
+        for name in (JobCounter.TPU_DEMOTIONS,
+                     JobCounter.TASKS_REAPED_TIMEOUT):
+            v = jip.counters.value(JobCounter.GROUP, name)
+            if v:
+                bad[f"{jip.job_id} {name}"] = v
+    check(not bad, f"{label}: demotions or reaps in a clean run: {bad}")
+    return {"jobs": len(jobs), **metrics}
+
+
+def accel_fault_real(km) -> dict:
+    """accel_fault (1): real faults on the card, classified as the node
+    runner classes them. An allocation past the free memory of cuda:0 is
+    torch.OutOfMemoryError, class oom; kmeans_assign_partials launched with
+    more blocks than tiles, through native.load() directly and through its
+    wrapper (its plan replaced for the call), returns cudaErrorInvalidValue
+    and the wrapper's RuntimeError is class device. After both the CUDA
+    probe passes and a fused launch matches its plain version: the context
+    is sound."""
+    from tpumr_torch.mapred.node_health import default_tpu_probe
+    from tpumr_torch.mapred.task import classify_accelerator_exception
+    from tpumr_torch.ops import native
+    t0 = time.monotonic()
+    free, _total = torch.cuda.mem_get_info(0)
+    try:
+        torch.empty(free + (4 << 30), dtype=torch.uint8, device="cuda:0")
+        fail("accel_fault: an allocation past the free memory succeeded")
+    except torch.OutOfMemoryError as e:
+        oom = classify_accelerator_exception(e)
+    torch.cuda.empty_cache()
+    check(oom == "oom", f"accel_fault: a real OOM classed {oom!r}")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(ACCEL_CHECK_N, D, device="cuda", generator=gen)
+    c = torch.randn(K, D, device="cuda", generator=gen)
+    plan = km.fused_plan(ACCEL_CHECK_N, D, K,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    tiles = -(-ACCEL_CHECK_N // plan.tile)
+    scratch = torch.empty((K * D + K) * (tiles + 2), dtype=torch.float32,
+                          device="cuda")
+    ids = torch.empty(ACCEL_CHECK_N, dtype=torch.int32, device="cuda")
+    rc = native.load().kmeans_assign_partials(
+        x.data_ptr(), c.data_ptr(), ids.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr(), ACCEL_CHECK_N, D, K,
+        plan.tile, 2 ** 31 - 1, 0, torch.cuda.current_stream().cuda_stream)
+    check(rc in (1, 9), f"accel_fault: a launch of 2**31 - 1 blocks gave "
+          f"cudaError {rc}, not 1 (invalid value) or 9 (invalid "
+          "configuration)")
+    real_plan = km._fused_plan_on
+    km._fused_plan_on = lambda dev, n, d, k: plan._replace(grid=tiles + 1)
+    launches = km.kmeans_assign_partials.launches
+    try:
+        km.kmeans_assign_partials(x, c)
+        fail("accel_fault: a launch of more blocks than tiles succeeded")
+    except RuntimeError as e:
+        launch_error, device = str(e), classify_accelerator_exception(e)
+    finally:
+        km._fused_plan_on = real_plan
+    check(device == "device", f"accel_fault: {launch_error!r} classed "
+          f"{device!r}")
+    check(km.kmeans_assign_partials.launches == launches,
+          "accel_fault: a refused launch was counted")
+    torch.cuda.synchronize()
+    default_tpu_probe(0)
+    ids, sums, counts = km.kmeans_assign_partials(x, c)
+    ref, ref_sums, ref_counts = km.assign_and_partials_plain(x, c)
+    cmp = compare_ids(x, c, ids, ref)
+    check_ids("accel_fault: the fused launch after the faults", cmp)
+    check(torch.equal(counts, torch.bincount(ids, minlength=K)
+                      .to(torch.int32)),
+          "accel_fault: counts after the faults are not the bincount of "
+          "the ids")
+    want = torch.zeros(K, D, dtype=torch.float64, device="cuda") \
+        .index_add_(0, ids.long(), x.double())
+    scale = torch.zeros(K, D, dtype=torch.float64, device="cuda") \
+        .index_add_(0, ids.long(), x.double().abs())
+    check(bool(((sums.double() - want).abs() <= SUMS_RTOL * scale).all()),
+          "accel_fault: sums after the faults off the float64 sums")
+    row = {"oom_class": oom, "launch_rc": rc, "launch_error": launch_error,
+           "launch_class": device, "probe": "passed",
+           "mismatches": cmp["mismatches"], "near_ties": cmp["near_ties"],
+           "seconds": time.monotonic() - t0}
+    del x, c, ids, sums, counts, ref, ref_sums, ref_counts, want, scale, \
+        scratch
+    torch.cuda.empty_cache()
+    log("accel_fault_real " + json.dumps(row))
+    return row
+
+
+def accel_fault_job(c, conf, km, tag: str, work: str, ref) -> dict:
+    """One K-Means job of the accel_fault phase on the hybrid cluster: its
+    seconds, status, counters, failed attempts and fused launches, and its
+    centroids against the float64 Lloyd step ``ref``."""
+    from tpumr_torch.core.counters import JobCounter
+    from tpumr_torch.mapred.job_client import JobClient
+    from tpumr_torch.mapred.task import TaskState
+    km.clear_centroid_cache()
+    client = JobClient(conf)
+    try:
+        zero_launch_counts(km)
+        t = time.monotonic()
+        running = client.submit_job(conf)
+        st = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+        secs = time.monotonic() - t
+        launches = launch_counts(km)
+    finally:
+        client.close()
+    check(st["state"] == "SUCCEEDED", f"accel_fault {tag}: {st['state']} "
+          f"{st.get('error', '')}")
+    jip = c.master.jobs[running.job_id]
+    failed = [(str(a.attempt_id), a.failure_class) for tip in jip.maps
+              for a in tip.attempts.values() if a.state == TaskState.FAILED]
+    got = read_centroids(os.path.join(work, tag, "part-00000"))
+    check(sorted(got) == list(range(K)), f"accel_fault {tag}: clusters "
+          f"{sorted(got)}")
+    got = np.stack([got[i] for i in range(K)])
+    err = np.abs(got - ref)
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL * np.abs(ref))),
+          f"accel_fault {tag}: centroids off the float64 oracle by up to "
+          f"{err.max():.3g}")
+    return {"job_s": secs, "launches": launches, "failed": failed,
+            "TPU_DEMOTIONS": jip.counters.value(JobCounter.GROUP,
+                                                JobCounter.TPU_DEMOTIONS),
+            "tpu_disabled": st["tpu_disabled"],
+            "tpu_demoted_tips": st["tpu_demoted_tips"],
+            "finished_tpu_maps": st["finished_tpu_maps"],
+            "finished_cpu_maps": st["finished_cpu_maps"],
+            "max_abs_err": float(err.max()), "t0": t}
+
+
+def accel_fault_cluster(c, work: str, n: int, cents, km) -> dict:
+    """accel_fault (2, 3) on the hybrid phase's running cluster (1 runner,
+    3 CPU + 1 GPU slots), K-Means over the hybrid points' first
+    ACCEL_SPLITS splits with the same centroids, each job's centroids
+    against a float64 Lloyd step.
+
+    (3) first, while card 0's streak of failures is clean: at most
+    ACCEL_DEVICE_FAULTS faults at tpumr.fi.tpu.execute.d0 (class device),
+    tpumr.tpu.attempt.retries above them and tpumr.tpu.job.quarantine.tips
+    above the maps, so that nothing is demoted. The GPU slot fails its map
+    three times while the CPU slots hold the others; the runner must
+    advertise 0 GPU slots the moment the third failure quarantines the
+    card; the CUDA probe (every ACCEL_PROBE_MS) restores it; the map then
+    launches kmeans_assign_partials there. (2): every GPU attempt fails
+    (tpumr.fi.tpu.execute.probability=1), class device, before staging:
+    the map is demoted and, with tpumr.tpu.job.quarantine.tips=1 (only the
+    first map reaches the one GPU slot while the CPU slots hold the
+    others), the job's GPU pass quarantined; it succeeds on the CPU slots
+    with 0 fused launches."""
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.utils import fi
+    n4 = min(n, ACCEL_SPLITS * HYB_ROWS)
+    t0 = time.monotonic()
+    # the first splits as a file of their own: header, then the rows
+    header = np.lib.format.header_data_from_array_1_0(
+        np.empty((0, D), np.float32))
+    header["shape"] = (n4, D)
+    src = np.load(os.path.join(work, "points.npy"), mmap_mode="r")
+    with open(os.path.join(work, "points4.npy"), "wb") as out:
+        np.lib.format.write_array_header_1_0(out, header)
+        for lo in range(0, n4, HYB_ROWS):
+            out.write(np.ascontiguousarray(src[lo:lo + HYB_ROWS]).tobytes())
+    del src
+    ref = oracle(work, n4, cents, km, compare=False)["centroids"]
+    setup_s = time.monotonic() - t0
+
+    def job(tag: str, **keys):
+        conf = c.create_job_conf()
+        conf.set_job_name(f"accel-{tag}")
+        conf.set_input_paths(f"file://{work}/points4.npy")
+        conf.set_output_path(f"file://{work}/{tag}")
+        conf.set_input_format(DenseInputFormat)
+        conf.set("tpumr.dense.split.rows", HYB_ROWS)
+        conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+        conf.set_map_kernel("kmeans-assign")
+        conf.set("mapred.reducer.class",
+                 "tpumr_torch.ops.kmeans.CentroidReducer")
+        conf.set_num_reduce_tasks(1)
+        conf.set("tpumr.fi.seed", 20260804)
+        for k, v in keys.items():
+            conf.set(k, v)
+        return accel_fault_job(c, conf, km, tag, work, ref)
+
+    tracker = c.trackers[0]
+    dh = tracker.device_health
+    check(dh is not None and dh.threshold == ACCEL_DEVICE_FAULTS
+          and dh.quarantined() == [], "accel_fault: the runner's device "
+          "health is not armed")
+    events: list = []
+    record, probe_once = dh.record_failure, dh.probe_once
+
+    def recorded(d):
+        newly = record(d)
+        if newly:
+            events.append(("quarantined", time.monotonic(),
+                           tracker._status_dict()["max_tpu_map_slots"]))
+        return newly
+
+    def probed(now=None):
+        restored = probe_once(now)
+        if restored:
+            events.append(("restored", time.monotonic(),
+                           tracker._status_dict()["max_tpu_map_slots"]))
+        return restored
+
+    dh.record_failure, dh.probe_once = recorded, probed
+    fi.reset()
+    try:
+        quar = job("quarantine", **{
+            "tpumr.fi.tpu.execute.d0.probability": 1.0,
+            "tpumr.fi.tpu.execute.d0.max.failures": ACCEL_DEVICE_FAULTS,
+            "tpumr.tpu.attempt.retries": ACCEL_DEVICE_FAULTS + 1,
+            "tpumr.tpu.job.quarantine.tips": 100})
+        fired_d0 = fi.fired("tpu.execute.d0")
+    finally:
+        del dh.record_failure, dh.probe_once
+    check(fired_d0 == ACCEL_DEVICE_FAULTS and [f for _a, f in quar["failed"]]
+          == ["device"] * ACCEL_DEVICE_FAULTS, f"accel_fault quarantine: "
+          f"{fired_d0} faults, failed attempts {quar['failed']}")
+    check([(kind, slots) for kind, _t, slots in events]
+          == [("quarantined", 0), ("restored", 1)], f"accel_fault "
+          f"quarantine: the runner advertised {events} GPU slots")
+    check(quar["TPU_DEMOTIONS"] == 0 and not quar["tpu_disabled"],
+          "accel_fault quarantine: a map was demoted")
+    check(quar["launches"]["kmeans_assign_partials"] >= 1
+          and quar["launches"]["kmeans_assign_partials"]
+          == quar["finished_tpu_maps"], f"accel_fault quarantine: "
+          f"{quar['launches']} launches for {quar['finished_tpu_maps']} GPU "
+          "maps after the restore")
+    quar["quarantined_after_s"] = events[0][1] - quar["t0"]
+    quar["restored_after_s"] = events[1][1] - quar["t0"]
+    quar["quarantine_to_restore_s"] = events[1][1] - events[0][1]
+
+    fi.reset()
+    try:
+        demo = job("demotion", **{"tpumr.fi.tpu.execute.probability": 1.0,
+                                  "tpumr.tpu.job.quarantine.tips": 1})
+        fired = fi.fired("tpu.execute")
+    finally:
+        fi.reset()
+    check(demo["TPU_DEMOTIONS"] >= 1 and demo["tpu_disabled"],
+          f"accel_fault demotion: {demo['TPU_DEMOTIONS']} demotions, GPU "
+          f"pass quarantined {demo['tpu_disabled']}")
+    check(fired >= 1 and {f for _a, f in demo["failed"]} == {"device"},
+          f"accel_fault demotion: {fired} faults, failed {demo['failed']}")
+    check(demo["launches"]["kmeans_assign_partials"] == 0
+          and demo["finished_tpu_maps"] == 0, f"accel_fault demotion: "
+          f"{demo['launches']} launches, {demo['finished_tpu_maps']} GPU maps")
+    for row in (quar, demo):
+        del row["t0"]
+    out = {"quarantine": quar, "demotion": demo, "setup_s": setup_s,
+           "seconds": time.monotonic() - t0}
+    log("accel_fault_cluster " + json.dumps(out))
+    return out
 
 
 def hybrid_data(work: str, n: int, mm_n: int) -> np.ndarray:
@@ -1031,7 +1331,7 @@ def hybrid_run(conf, tag: str, km) -> dict:
     return row
 
 
-def hybrid_phase(km, n: int) -> dict:
+def hybrid_phase(km, n: int, keep_points: str) -> dict:
     """bench.py's hybrid phase (bench.py:1168-1308) on the port's
     MiniMRCluster: one node runner with 3 CPU map slots and 1 GPU map slot,
     optional scheduling on. K-Means over n x 16 points (16 centroids,
@@ -1044,7 +1344,8 @@ def hybrid_phase(km, n: int) -> dict:
     acceleration factor must exceed 1. Then hybrid-matmul: HYB_MM_N^2 f32 A
     and B, 4 maps, map-only, SequenceFileOutputFormat, f32 products (TF32
     off, cuBLAS on the GPU slot, numpy on the CPU slots), against a float64
-    product."""
+    product. Then accel_fault's steps 2-3 on the same cluster. The points
+    end at ``keep_points``, for the pipeline phase."""
     from tpumr_torch.io import sequencefile
     from tpumr_torch.mapred import gpu_runner
     from tpumr_torch.mapred.input_formats import DenseInputFormat
@@ -1065,6 +1366,9 @@ def hybrid_phase(km, n: int) -> dict:
         n_maps = -(-n // HYB_ROWS)
         base = JobConf()
         base.set("mapred.jobtracker.map.optionalscheduling", True)
+        # the accel_fault steps' runner settings; no other job meets them
+        base.set("tpumr.tpu.device.probe.interval.ms", ACCEL_PROBE_MS)
+        base.set("tpumr.tpu.device.quarantine.failures", ACCEL_DEVICE_FAULTS)
         runs = []
         with MiniMRCluster(num_trackers=1, cpu_slots=3, tpu_slots=1,
                            conf=base) as c:
@@ -1101,6 +1405,8 @@ def hybrid_phase(km, n: int) -> dict:
             conf.set_output_format(SequenceFileOutputFormat)
             conf.set_num_reduce_tasks(0)
             mm = hybrid_run(conf, "matmul", km)
+            clean = check_no_faults(c.master, "hybrid")
+            accel = accel_fault_cluster(c, work, n, cents, km)
         check(not [th.name for th in threading.enumerate()
                    if th.name.startswith(("heartbeat-", "task-",
                                           "rpc-server", "jobmaster-"))],
@@ -1164,12 +1470,17 @@ def hybrid_phase(km, n: int) -> dict:
         check(ratio <= MM_ERR, f"hybrid matmul: |C - C64| reaches "
               f"{ratio:.3g} of the f32 error scale, over {MM_ERR}")
         secs = time.monotonic() - t_phase
-        log("hybrid_phase " + json.dumps({"seconds": secs}))
-        return {"runs": runs, "matmul": mm, "seconds": secs,
+        log("hybrid_phase " + json.dumps({
+            "seconds": secs, "accel_fault_s": accel["seconds"],
+            "clean_jobs": clean["jobs"]}))
+        return {"runs": runs, "matmul": mm, "seconds": secs, "accel": accel,
                 "launches": sum(r["launches"]["kmeans_assign_partials"]
-                                for r in runs)}
+                                for r in runs)
+                + accel["quarantine"]["launches"]["kmeans_assign_partials"]}
     finally:
         gpu_runner.clear_split_caches()
+        if os.path.exists(os.path.join(work, "points.npy")):
+            os.replace(os.path.join(work, "points.npy"), keep_points)
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1420,6 +1731,7 @@ def pipeline_cli(work: str, km) -> dict:
         states = [ln.split("\t")[1] for ln in listed.splitlines()]
         check(states == ["SUCCEEDED"] * (2 * PIPE_CLI_ROUNDS),
               f"job -list: {listed!r}")
+        reaper = daemons_reaper(addr, work, run)
         t = time.monotonic()
         for p in (tt, jt):
             p.send_signal(signal.SIGTERM)
@@ -1441,8 +1753,64 @@ def pipeline_cli(work: str, km) -> dict:
               f"{PIPE_CLI_ROUNDS}'s by up to "
               f"{float(np.abs(got - want).max()):.3g}")
     row = {"seconds": time.monotonic() - t_all, "steps_s": secs,
-           "jobs_listed": len(states)}
+           "jobs_listed": len(states), "reaper": reaper}
     log("pipeline_cli " + json.dumps(row))
+    return row
+
+
+def daemons_reaper(addr: str, work: str, run) -> dict:
+    """accel_fault (4), through the daemons: their jobs so far neither
+    demoted nor reaped (5); then examples sleep -m 4 -r 1 --tpu --hang-map
+    0 with mapred.task.timeout=ACCEL_SLEEP_TIMEOUT_MS sent with -jt. Map 0's
+    first attempt hangs on the runner's one GPU slot: exactly one attempt
+    is reaped (TASKS_REAPED_TIMEOUT 1, class timeout), map 0 succeeds on
+    attempt 1, and the runner's task threads (its metrics, over RPC at its
+    shuffle address) all end."""
+    from tpumr_torch.ipc.rpc import RpcClient
+    host, port = addr.rsplit(":", 1)
+    master = RpcClient(host, int(port))
+    try:
+        before = master.call("get_metrics")
+        check(not any(before.values()), f"the daemons' jobs were demoted "
+              f"or reaped: {before}")
+        t = time.monotonic()
+        run("examples_sleep", [
+            "-jt", addr, "examples", "sleep", "-m", "4", "-r", "1", "--tpu",
+            "--hang-map", "0", "--work", f"file://{work}/sleep",
+            "-D", f"mapred.task.timeout={ACCEL_SLEEP_TIMEOUT_MS}"])
+        secs = time.monotonic() - t
+        job_id = master.call("list_jobs")[-1]
+        counters = master.call("get_counters", job_id)
+        maps = master.call("get_task_reports", job_id, "map")
+        events = master.call("get_map_completion_events", job_id, 0)
+        after = master.call("get_metrics")
+    finally:
+        master.close()
+    reaped = counters.get("tpumr.JobCounter", {}).get("TASKS_REAPED_TIMEOUT")
+    check(reaped == 1 and after["tasks_reaped_timeout"] == 1
+          and after["tpu_demotions"] == 0, f"sleep --hang-map 0: "
+          f"TASKS_REAPED_TIMEOUT {reaped}, master {after}")
+    check(maps[0]["successful_attempt"].endswith("_1")
+          and all(m["successful_attempt"].endswith("_0") for m in maps[1:]),
+          f"sleep --hang-map 0: attempts "
+          f"{[m['successful_attempt'] for m in maps]}")
+    rhost, rport = events[0]["shuffle_addr"].rsplit(":", 1)
+    runner = RpcClient(rhost, int(rport))
+    try:
+        deadline = time.monotonic() + 10
+        while True:
+            m = runner.call("metrics")
+            if not m["task_threads"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        runner.close()
+    check(not m["task_threads"] and m["tasks_reaped_timeout"] == 1,
+          f"sleep --hang-map 0: the runner {m}")
+    row = {"job_s": secs, "TASKS_REAPED_TIMEOUT": reaped,
+           "attempts": [m["successful_attempt"] for m in maps],
+           "runner": m}
+    log("accel_fault_reaper " + json.dumps(row))
     return row
 
 
@@ -1539,6 +1907,7 @@ def pipeline_terasort(work: str, rows: int) -> dict:
                 check(sums == rows_checksum(os.path.join(root, "gen"))
                       and sums["records"] == rows,
                       f"terasort pipeline ({tag}) lost or changed records")
+            check_no_faults(c.master, "pipeline terasort")
         finally:
             client.close()
     same_parts(os.path.join(work, "tera-dfs", "sorted"),
@@ -1554,11 +1923,11 @@ def pipeline_terasort(work: str, rows: int) -> dict:
     return row
 
 
-def pipeline_phase(km, n: int, tera_rows: int) -> dict:
+def pipeline_phase(km, n: int, tera_rows: int, points: str) -> dict:
     """The pipeline engine on the card: (a) the K-Means loop node on a
     mini cluster with one GPU slot, (b) the command line's daemons, (c)
-    TeraSort's chain as one pipeline. The hybrid phase's points, written
-    again by hybrid_data (no matrices)."""
+    TeraSort's chain as one pipeline. The hybrid phase's points, moved in
+    from ``points``."""
     from tpumr_torch.examples.basic import load_npy_rows
     from tpumr_torch.fs.filesystem import FileSystem
     from tpumr_torch.mapred import gpu_runner
@@ -1568,7 +1937,7 @@ def pipeline_phase(km, n: int, tera_rows: int) -> dict:
     t_phase = time.monotonic()
     work = tempfile.mkdtemp(prefix="tpumr_torch-pipeline-")
     try:
-        hybrid_data(work, n, 0)
+        os.replace(points, os.path.join(work, "points.npy"))
         points = f"file://{work}/points.npy"
         seeds = load_npy_rows(FileSystem.get(points), points, K)
         for prefix in ("pipe-", "seq-"):
@@ -1581,6 +1950,7 @@ def pipeline_phase(km, n: int, tera_rows: int) -> dict:
             loop = pipeline_loop(c, work, n, km)
             # cluster_shuffle (c), on this cluster and its points
             lost = lost_output_rounds(c, work, n, km)
+            check_no_faults(c.master, "pipeline")
         km.clear_pipeline_caches()
         gpu_runner.clear_split_caches()
         # (b)'s daemons and programs, processes of their own, beside (c)
@@ -2801,6 +3171,7 @@ def cluster_host_shuffle(work: str, gen: str, local_out: str,
             c, "spill_host", small, f"{work}/spill-cluster",
             TERA_SPILL_ROWS, {"tpumr.shuffle.ram.mb": TERA_SPILL_RAM_MB,
                               "io.sort.factor": TERA_SPILL_FACTOR})
+        check_no_faults(c.master, "cluster_shuffle (b)")
     check(same_parts(f"{work}/host-cluster", local_out,
                      "the cluster's and the local shuffles") == rows,
           "cluster host shuffle: records lost")
@@ -2961,6 +3332,7 @@ def terasort_phase(rows: int, work: str, gen_proc: ExampleProcess) -> dict:
             out["cluster"] = cluster_terasort(c, work, gen, rows, sums_in,
                                               local_parts,
                                               out["cold"]["fetch_s"])
+            check_no_faults(c.master, "cluster_shuffle (a)")
         out["cluster"]["seconds"] = time.monotonic() - t
         shutil.rmtree(gen)
 
@@ -3113,6 +3485,7 @@ def main() -> None:
                     help="also profile two more warm jobs, device and host "
                          "(chiprun_out/)")
     args = ap.parse_args()
+    t_script = time.monotonic()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
 
@@ -3136,14 +3509,22 @@ def main() -> None:
 
     shapes = kernel_phase(km)
     fused = fused_phase(km)
+    real_faults = accel_fault_real(km)
     work = tempfile.mkdtemp(prefix="tpumr_torch-smoke-")
     try:
         main = main_path(work, args.points, km, args.profile)
         rounds = rounds_phase(work, args.points, km)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    hybrid = hybrid_phase(km, args.hybrid_points)
-    pipeline = pipeline_phase(km, args.hybrid_points, args.pipeline_tera_rows)
+    # the hybrid points, written once for the hybrid and pipeline phases
+    points_dir = tempfile.mkdtemp(prefix="tpumr_torch-points-")
+    try:
+        hyb_points = os.path.join(points_dir, "points.npy")
+        hybrid = hybrid_phase(km, args.hybrid_points, hyb_points)
+        pipeline = pipeline_phase(km, args.hybrid_points,
+                                  args.pipeline_tera_rows, hyb_points)
+    finally:
+        shutil.rmtree(points_dir, ignore_errors=True)
     job2 = second_job(km)
     job3 = third_job(km)
     matmul_phase()
@@ -3161,6 +3542,16 @@ def main() -> None:
         tera = terasort_phase(args.tera_rows, tera_work, gen_proc)
     finally:
         shutil.rmtree(tera_work, ignore_errors=True)
+    accel, reaper = hybrid["accel"], pipeline["cli"]["reaper"]
+    log("accel_fault_phase " + json.dumps({
+        "seconds": real_faults["seconds"] + accel["seconds"],
+        "real_s": real_faults["seconds"], "cluster_s": accel["seconds"],
+        "quarantine_job_s": accel["quarantine"]["job_s"],
+        "quarantine_to_restore_s":
+            accel["quarantine"]["quarantine_to_restore_s"],
+        "demotion_job_s": accel["demotion"]["job_s"],
+        "clean_hybrid_job_s": [r["job_s"] for r in hybrid["runs"]],
+        "reaper_job_s": reaper["job_s"]}))
     lost = pipeline["lost_output"]
     log("cluster_shuffle_phase " + json.dumps({
         "seconds": tera["cluster"]["seconds"]
@@ -3192,6 +3583,8 @@ def main() -> None:
         "library_ms": a["library_ms"], "checked": True}]
     check(all(kn["launches"] > 0 for kn in kernels),
           "a kernel never launched on the path that drives it")
+    # the run's seconds on this script's clock, against the 1,200 s limit
+    log("chip_smoke " + json.dumps({"seconds": time.monotonic() - t_script}))
     log(smi[0])   # again, beside the results at the end of the output
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -391,10 +391,11 @@ def test_lost_runner_unwinds_and_drops_pending_reports_as_jax():
 
 
 def test_rerun_for_lost_output_may_take_a_cpu_slot_as_jax():
-    """The port-only pin: a GPU-slot map whose output was lost did not
-    fail on the device, so the scheduler may place its re-run on a CPU
-    slot (it is not in _gpu_only_maps), as the JAX package's does; a map
-    whose GPU-slot attempt FAILED is still kept off the CPU slots."""
+    """A GPU-slot map whose output was lost did not fail on the device,
+    so the scheduler may place its re-run on a CPU slot, as the JAX
+    package's does; and a map whose GPU-slot attempt FAILED with no
+    failure class goes back for any slot, placed as the JAX package
+    places it."""
 
     def run(pkgs, lost_output):
         pkg = pkgs
@@ -424,7 +425,8 @@ def test_rerun_for_lost_output_may_take_a_cpu_slot_as_jax():
     assert lost == run(JAX_SCHED, lost_output=True)
     assert [(p[2], p[3]) for p in lost if p[1]] == [(0, False)]
     failed = run(PORT_SCHED, lost_output=False)
-    assert not [p for p in failed if p[1]]   # the port's pin, kept
+    assert failed == run(JAX_SCHED, lost_output=False)
+    assert [(p[2], p[3]) for p in failed if p[1]] == [(0, False)]
 
 
 # --------------------------------------------------------------- locator

@@ -397,26 +397,46 @@ def test_status_dict_placement_and_reports_match_jax():
     assert run(PORT) == run(JAX)
 
 
-def test_failed_gpu_attempt_waits_for_a_gpu_slot():
-    """The port only (the JAX package demotes instead): a map whose
-    accelerator attempt failed is never given to a CPU slot, even with
-    every CPU slot free, so a failing kernel fails the job after
-    mapred.map.max.attempts; other maps still take the CPU slots."""
-    job = make_job(PORT, n_maps=2, n_reduces=0)
-    sched = make_scheduler(PORT, [job])
-    first = sched.assign_tasks(tracker_status(cpu=0))
-    assert placed(first) == [(str(job.job_id), True, 0, True, 0)]
-    finish(PORT, job, first[0], 1.0, state="FAILED", diagnostics="boom")
-    busy = placed(sched.assign_tasks(tracker_status(devices=[False])))
-    assert busy == [(str(job.job_id), True, 1, False, -1)]
-    assert job.obtain_new_map_task("host0", run_on_tpu=False) is None
-    for attempt in range(1, 4):
-        got = sched.assign_tasks(tracker_status(run_cpu=1))
-        assert placed(got) == [(str(job.job_id), True, 0, True, 0)]
-        assert got[0].attempt_id.attempt == attempt
-        finish(PORT, job, got[0], 1.0, state="FAILED", diagnostics="boom")
-    assert job.state == "FAILED" and "failed 4 times" in job.error
-    assert job.status_dict()["finished_cpu_maps"] == 0
+@pytest.mark.parametrize("failure_class",
+                         ["device", "compile", "user", "oom", "timeout", ""])
+def test_failed_gpu_attempt_is_placed_as_jax(failure_class):
+    """A map whose accelerator attempt FAILED is placed as the JAX package
+    places it (tests/test_accel_fault.py::TestTipDemotion): a device or
+    compile failure demotes it to the CPU slots (TPU_DEMOTIONS, the next
+    accelerator slot takes the other map, the CPU slot takes it); any
+    other class sends it back for any slot, the accelerator first."""
+    def run(pkg):
+        job = make_job(pkg, n_maps=2, n_reduces=0)
+        sched = make_scheduler(pkg, [job])
+        seq = []
+        first = sched.assign_tasks(tracker_status(cpu=0))
+        seq.append(placed(first))
+        st = pkg.TaskStatus(attempt_id=first[0].attempt_id, is_map=True,
+                            state=pkg.TaskState.FAILED, start_time=T0,
+                            finish_time=T0 + 1.0, run_on_tpu=True,
+                            tpu_device_id=0, diagnostics="boom",
+                            failure_class=failure_class)
+        job.update_task_status(st, "h:0")
+        # the accelerator slot alone, then the CPU slot alone
+        for status in (tracker_status(cpu=0), tracker_status(tpu=0)):
+            got = sched.assign_tasks(status)
+            seq.append(placed(got) + [t.attempt_id.attempt for t in got])
+            for t in got:
+                finish(pkg, job, t, 0.5 if t.run_on_tpu else 4.0)
+        seq.append(placed(sched.assign_tasks(tracker_status())))
+        d = job.status_dict()
+        return (seq, summary(job), d["tpu_demoted_tips"], d["tpu_disabled"],
+                job.counters.to_dict(), job.maps[0].tpu_failures)
+
+    port, jax = run(PORT), run(JAX)
+    assert port == jax
+    demoted = failure_class in ("device", "compile")
+    seq = port[0]
+    # map 0 on the accelerator again unless demoted; then on the CPU
+    assert seq[1][0][2:4] == ((1, True) if demoted else (0, True))
+    assert seq[2][0][2:4] == ((0, False) if demoted else (1, False))
+    assert port[2] == int(demoted) and port[5] == int(demoted)
+    assert port[1]["state"] == "SUCCEEDED"
 
 
 def test_cpu_starved_heartbeats_are_counted():

@@ -147,11 +147,12 @@ def test_join_equals_jax(tmp_path, outer):
 
 
 def test_examples_registry_lists_the_twelve_programs():
-    """tpumr/examples/__init__.py's registry, less sleep."""
+    """tpumr/examples/__init__.py's registry, whole: the twelve programs
+    and sleep."""
     from tpumr.examples import programs as jax_programs
     from tpumr_torch.examples import programs
-    assert sorted(programs()) == sorted(set(jax_programs()) - {"sleep"})
-    assert len(programs()) == 12
+    assert sorted(programs()) == sorted(jax_programs())
+    assert len(programs()) == 13
 
 
 def _wordcount_conf(conf, pkg, root, out, compress):

@@ -15,7 +15,8 @@ read raises before the command runs.
 
 Commands: ``jobtracker`` and ``tasktracker``, which serve until SIGTERM or
 SIGINT (``:141-154, 212-236``); ``job -list | -status ID | -kill ID |
--counters ID`` (``:267-396``); ``pipeline submit GRAPH.json [-wait] |
+-counters ID | -list-active-trackers`` (``:267-396``; an unhealthy runner
+with its health script's report); ``pipeline submit GRAPH.json [-wait] |
 status ID | -list | -kill ID`` (``:397-479``); ``examples``; ``version``.
 ``job -history``, ``job -diagnose``, ``job trace``, ``job stats`` and
 ``pipeline trace`` wait for the port's job history and tracing: each says
@@ -44,6 +45,7 @@ Daemons:
 
 Clients:
   job ...              job control: -list | -status ID | -kill ID | -counters ID
+                       | -list-active-trackers
   pipeline ...         DAG-of-jobs pipelines: submit GRAPH.json [-wait] |
                        status ID | -list | -kill ID
   examples NAME ...    run an example program (examples -h lists them)
@@ -184,7 +186,7 @@ def cmd_tasktracker(conf, argv: "list[str]") -> int:
 def cmd_job(conf, argv: "list[str]") -> int:
     from tpumr_torch.ipc.rpc import RpcClient, RpcError
     usage = ("Usage: python -m tpumr_torch.cli job -list | -status ID | "
-             "-kill ID | -counters ID")
+             "-kill ID | -counters ID | -list-active-trackers")
     if argv and argv[0].lstrip("-") in ("history", "diagnose", "trace",
                                         "stats"):
         print(f"job {argv[0]} {_NOT_PORTED}", file=sys.stderr)
@@ -193,7 +195,8 @@ def cmd_job(conf, argv: "list[str]") -> int:
     if not jt:
         print("job control needs -jt HOST:PORT", file=sys.stderr)
         return 255
-    if not argv or (argv[0] != "-list" and len(argv) < 2):
+    if not argv or (argv[0] not in ("-list", "-list-active-trackers")
+                    and len(argv) < 2):
         print(usage, file=sys.stderr)
         return 255
     cmd, *rest = argv
@@ -206,6 +209,10 @@ def cmd_job(conf, argv: "list[str]") -> int:
                       f"\t{st.get('priority', 'NORMAL')}"
                       f"\tmaps={st.get('map_progress'):.2f}"
                       f"\treduces={st.get('reduce_progress'):.2f}")
+            return 0
+        if cmd == "-list-active-trackers":
+            for name in client.call("get_active_trackers"):
+                print(name)
             return 0
         if cmd == "-status":
             print(json.dumps(client.call("get_job_status", rest[0]),

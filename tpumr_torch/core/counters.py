@@ -56,6 +56,11 @@ class BackendCounter:
 class JobCounter:
     LAUNCHED_MAP_TASKS = "LAUNCHED_MAP_TASKS"
     LAUNCHED_REDUCE_TASKS = "LAUNCHED_REDUCE_TASKS"
+    #: maps pinned to the CPU slots after device or compile failures on an
+    #: accelerator slot, and attempts the node runner's reaper failed for
+    #: silence (failure class ``timeout``)
+    TPU_DEMOTIONS = "TPU_DEMOTIONS"
+    TASKS_REAPED_TIMEOUT = "TASKS_REAPED_TIMEOUT"
     GROUP = "tpumr.JobCounter"
 
 

@@ -44,8 +44,8 @@ def programs() -> dict[str, str]:
 def _load_all() -> None:
     # imported for their registrations
     from tpumr_torch.examples import (basic, join,  # noqa: F401
-                                      random_writer, secondary_sort, sort,
-                                      terasort)
+                                      random_writer, secondary_sort, sleep,
+                                      sort, terasort)
 
 
 def main(argv: list[str]) -> int:

@@ -2,7 +2,11 @@
 and partitioner contracts.
 
 Counterpart of ``tpumr/mapred/api.py``, trimmed to what the port's job
-paths use.
+paths use. The :class:`Reporter` is the JAX package's whole
+(``:31-75``): counters, a status line, progress, liveness ticks that the
+node runner's hung-task reaper reads, and the kill flag that record and
+batch loops poll (``raise_if_aborted``), since a task thread cannot be
+interrupted.
 """
 
 from __future__ import annotations
@@ -14,11 +18,46 @@ from tpumr_torch.core.counters import Counters
 from tpumr_torch.io.writable import deserialize, serialize
 
 
-class Reporter:
-    """Counters of one task attempt."""
+class TaskKilledError(RuntimeError):
+    """Raised inside a task whose attempt was killed (a job kill, a reap, a
+    runner stopping): it ends KILLED, or stays as the reaper settled it,
+    never FAILED by this error."""
 
-    def __init__(self, counters: "Counters | None" = None) -> None:
+
+class Reporter:
+    """Counters, status and progress of one task attempt, and its kill
+    flag. ``ticks`` counts every sign of life (a status line, a progress
+    report, a keepalive of a wait that is idle but alive): the reaper
+    fails an attempt whose counters, status and ticks stay still for
+    ``mapred.task.timeout``."""
+
+    def __init__(self, counters: "Counters | None" = None,
+                 on_progress: "Callable[[float], None] | None" = None,
+                 abort_check: "Callable[[], bool] | None" = None) -> None:
         self.counters = counters or Counters()
+        self._on_progress = on_progress
+        self._abort_check = abort_check
+        self.status = ""
+        self.ticks = 0
+
+    def set_status(self, status: str) -> None:
+        self.status = status
+        self.ticks += 1
+
+    def keepalive(self) -> None:
+        self.ticks += 1
+
+    def progress(self, fraction: "float | None" = None) -> None:
+        self.ticks += 1
+        if self._on_progress is not None and fraction is not None:
+            self._on_progress(fraction)
+
+    def aborted(self) -> bool:
+        return self._abort_check is not None and self._abort_check()
+
+    def raise_if_aborted(self) -> None:
+        if self.aborted():
+            raise TaskKilledError("attempt killed while running")
 
     def incr_counter(self, group: str, name: str, amount: int = 1) -> None:
         self.counters.incr(group, name, amount)

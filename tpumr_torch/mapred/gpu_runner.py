@@ -21,6 +21,16 @@ Counterpart of ``tpumr/mapred/tpu_runner.py``:
   output to the host in ONE copy, one synchronisation per window; it
   returns None for a job the window cannot take;
 - :class:`CpuBatchMapRunner` is the CPU-slot runner (``:517-550``).
+
+Faults (``:184-199``, ``:260-316``): before it stages, an accelerator
+attempt passes the seams ``tpu.compile`` (classed ``compile``),
+``tpu.execute`` and ``tpu.execute.d<id>`` (classed ``device``) of
+``utils/fi``. An exception of the stage, or of the launch, the fetch and
+the drain, is tagged with ``task.classify_accelerator_exception``: a CUDA
+error of the card surfaces at the next call that synchronises with it,
+which here is the device-to-host fetch of the task (or of the window), so
+the fault is charged to the attempt and the card that fetched. Both
+runners poll the attempt's kill flag at their batch boundaries.
 """
 
 from __future__ import annotations
@@ -41,6 +51,10 @@ from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred import device_output
 from tpumr_torch.mapred.api import MapRunnable
 from tpumr_torch.mapred.split import DenseSplit, InputSplit
+from tpumr_torch.mapred.task import (FailureClass,
+                                     classify_accelerator_exception,
+                                     tag_failure)
+from tpumr_torch.utils.fi import maybe_fail
 from tpumr_torch.utils.reflection import new_instance
 
 
@@ -209,12 +223,28 @@ def _stage_dense(conf: Any, in_fmt: Any, split: DenseSplit,
     return DenseBatch(staged, batch.ids, batch.meta), nbytes
 
 
-def _kernel(conf: Any):
+def _maybe_fail_accelerator(conf: Any, dev_id: int) -> None:
+    """The accelerator seams, classed as the fault they stand for; the
+    qualified ``tpu.execute.d<id>`` sickens one card while the others
+    serve."""
+    maybe_fail("tpu.compile", conf, failure_class=FailureClass.COMPILE)
+    maybe_fail("tpu.execute", conf, failure_class=FailureClass.DEVICE)
+    if dev_id >= 0:
+        maybe_fail(f"tpu.execute.d{dev_id}", conf,
+                   failure_class=FailureClass.DEVICE)
+
+
+def job_kernel(conf: Any):
+    """The job's kernel mapper. The job's mapper class is loaded first: a
+    program that defines its kernel beside its mapper (``examples/sleep``)
+    registers it on import, which a node runner in a process of its own
+    has not done yet."""
     from tpumr_torch.ops import get_kernel
     name = conf.get_map_kernel()
     if not name:
         raise ValueError("task placed on the device but no kernel mapper "
                          "configured (JobConf.set_map_kernel)")
+    conf.get_mapper_class()
     return get_kernel(name)
 
 
@@ -228,7 +258,10 @@ class GpuMapRunner(MapRunnable):
 
     def run(self, reader, output, reporter, task_ctx=None) -> None:
         conf = self.conf
-        kernel = _kernel(conf)
+        dev_id = task_ctx.tpu_device_id if task_ctx is not None else -1
+        _maybe_fail_accelerator(conf, dev_id)
+        kernel = job_kernel(conf)
+        reporter.raise_if_aborted()
         pre = task_ctx.device_prefetch if task_ctx is not None else None
         if pre is not None:
             # a window already staged, launched and fetched this task's
@@ -246,9 +279,13 @@ class GpuMapRunner(MapRunnable):
                                                      task_ctx):
                 output.collect(key, value)
             return
-        device = select_device(conf, task_ctx.tpu_device_id)
-        batch, counted, staged_bytes = stage_batch(conf, reader, task_ctx,
-                                                   device)
+        device = select_device(conf, dev_id)
+        try:
+            batch, counted, staged_bytes = stage_batch(conf, reader,
+                                                       task_ctx, device)
+        except Exception as e:  # noqa: BLE001 — classified at the site
+            raise tag_failure(e, classify_accelerator_exception(e))
+        reporter.raise_if_aborted()
         if not counted:     # the record reader counts its own records
             reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
                                   TaskCounter.MAP_INPUT_RECORDS,
@@ -256,17 +293,22 @@ class GpuMapRunner(MapRunnable):
         reporter.incr_counter(BackendCounter.GROUP,
                               BackendCounter.TPU_DEVICE_BYTES_STAGED,
                               staged_bytes)
-        state = (kernel.map_batch_launch(batch, conf, task_ctx)
-                 if type(kernel).supports_launch() else None)
-        if state is not None:
-            from tpumr_torch.ops.registry import fetch_to_host
-            _offer_device_rows(kernel, state, conf)
-            records = kernel.map_batch_drain(fetch_to_host([state])[0], conf,
-                                             task_ctx)
-        else:
-            records = kernel.map_batch(batch, conf, task_ctx)
-        for key, value in records:
-            output.collect(key, value)
+        try:
+            state = (kernel.map_batch_launch(batch, conf, task_ctx)
+                     if type(kernel).supports_launch() else None)
+            if state is not None:
+                from tpumr_torch.ops.registry import fetch_to_host
+                _offer_device_rows(kernel, state, conf)
+                # the fetch synchronises: an asynchronous CUDA error of the
+                # launch surfaces here, and is classified with it
+                records = kernel.map_batch_drain(fetch_to_host([state])[0],
+                                                 conf, task_ctx)
+            else:
+                records = kernel.map_batch(batch, conf, task_ctx)
+            for key, value in records:
+                output.collect(key, value)
+        except Exception as e:  # noqa: BLE001 — classified at the site
+            raise tag_failure(e, classify_accelerator_exception(e))
 
 
 def _device_rows_of(kernel: Any, state: Any, conf: Any) -> Any:
@@ -312,7 +354,7 @@ def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
     without ``read_batch`` (``pi``'s ``NLineInputFormat``), a task without
     a split, or tasks on more than one device."""
     from tpumr_torch.ops.registry import fetch_to_host
-    kernel = _kernel(conf)
+    kernel = job_kernel(conf)
     if not type(kernel).supports_launch():
         return None
     if getattr(new_instance(conf.get_input_format(), conf), "read_batch",
@@ -339,7 +381,10 @@ def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
         resident += staged_bytes
         if resident >= budget and len(states) < len(tasks):
             break  # close the window early; the caller resumes after us
-    fetched = fetch_to_host(states)     # ONE copy for the window
+    try:
+        fetched = fetch_to_host(states)     # ONE copy for the window
+    except Exception as e:  # noqa: BLE001 — the window's sync: classified
+        raise tag_failure(e, classify_accelerator_exception(e))
     return [DevicePrefetch(f, n, b, rows)
             for f, (n, b, rows) in zip(fetched, meta)]
 
@@ -352,8 +397,9 @@ class CpuBatchMapRunner(MapRunnable):
         self.conf = conf
 
     def run(self, reader, output, reporter, task_ctx=None) -> None:
-        kernel = _kernel(self.conf)
+        kernel = job_kernel(self.conf)
         batch, counted, _ = stage_batch(self.conf, reader, task_ctx, None)
+        reporter.raise_if_aborted()
         if not counted:
             reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
                                   TaskCounter.MAP_INPUT_RECORDS,

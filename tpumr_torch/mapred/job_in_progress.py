@@ -40,19 +40,24 @@ same numbers from the same task statuses:
   goes back to the pending set for any slot; a map that keeps losing its
   output fails the job at ``mapred.map.max.attempts``;
 - ``sched_anchor``, the FIFO sort key: the submit time, or the pipeline's
-  for a pipeline's stage job (``:357``).
+  for a pipeline's stage job (``:357``);
+- the accelerator fault tolerance (``:357-380, 450-505, 1113-1185``): an
+  accelerator attempt that FAILED classed ``device`` or ``compile`` is one
+  of its map's ``tpu_failures``; at ``tpumr.tpu.attempt.retries`` (default
+  1) the map is demoted, pinned to the CPU slots (``_cpu_only_maps``,
+  ``TPU_DEMOTIONS``), and at ``tpumr.tpu.job.quarantine.tips`` (default 3)
+  distinct such maps the job's accelerator pass is quarantined
+  (``tpu_disabled``): the accelerator profile sums are unwound so that
+  :meth:`acceleration_factor` returns 1.0, and accelerator completions that
+  arrive after it count in neither profile. A user, ``oom``, ``timeout``
+  or unclassified failure goes back for any slot. The decisions are queued
+  for the master (:meth:`drain_accel_events`); ``status_dict`` carries
+  ``tpu_disabled`` and ``tpu_demoted_tips``. A map re-executed for lost
+  output did not fail on the device either, and goes to any slot.
 
 Left out (``ROADMAP.md``): speculative attempts, restart recovery (so the
 reports of reduces adopted from a recovered job), the progress-rate model,
-brownout holds, rack locality,
-and the TPU-to-CPU demotion and job-level accelerator quarantine
-(``_note_tpu_failure``, ``_cpu_only_maps``, ``tpu_disabled``). Where the
-JAX package demotes, the port does the reverse: a map whose attempt failed
-on an accelerator slot is offered to accelerator slots only from then on,
-so a failing kernel fails the job after ``mapred.map.max.attempts``
-instead of the map finishing on a CPU slot and hiding the fault. A map
-re-executed for lost output did not fail on the device, and goes to any
-slot, as in the JAX package.
+brownout holds and rack locality.
 """
 
 from __future__ import annotations
@@ -62,9 +67,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
-from tpumr_torch.core.counters import Counters
+from tpumr_torch.core.counters import Counters, JobCounter
 from tpumr_torch.mapred.ids import JobID, TaskAttemptID, TaskID
-from tpumr_torch.mapred.task import Task, TaskReport, TaskState, TaskStatus
+from tpumr_torch.mapred.task import (FailureClass, Task, TaskReport,
+                                     TaskState, TaskStatus)
 
 #: defaults of the keys read here, the JAX package's (its confkeys registry)
 _DEFAULTS = {"mapred.reduce.tasks": 1, "mapred.map.max.attempts": 4,
@@ -72,7 +78,9 @@ _DEFAULTS = {"mapred.reduce.tasks": 1, "mapred.map.max.attempts": 4,
              "mapred.reduce.slowstart.completed.maps": 0.05,
              "mapred.max.fetch.failures.per.map": 3,
              "mapred.job.priority": "NORMAL", "tpumr.profile.ewma": 0.0,
-             "mapred.job.map.memory.mb": 0, "mapred.job.reduce.memory.mb": 0}
+             "mapred.job.map.memory.mb": 0, "mapred.job.reduce.memory.mb": 0,
+             "tpumr.tpu.attempt.retries": 1,
+             "tpumr.tpu.job.quarantine.tips": 3}
 
 
 def _conf_value(conf: dict, key: str) -> Any:
@@ -149,6 +157,8 @@ class TaskInProgress:
     attempts: "dict[str, TaskStatus]" = field(default_factory=dict)
     next_attempt: int = 0
     failures: int = 0
+    #: FAILED accelerator attempts classed device or compile
+    tpu_failures: int = 0
     successful_attempt: str = ""
     report: TaskReport = None  # type: ignore[assignment]
 
@@ -208,8 +218,24 @@ class JobInProgress:
                 self.host_cache.setdefault(h, set()).add(i)
         self._pending_maps = set(range(len(self.maps)))
         self._pending_reduces = set(range(self.num_reduces))
-        #: maps with a FAILED accelerator attempt: accelerator slots only
-        self._gpu_only_maps: "set[int]" = set()
+        #: device or compile failures a map may take on an accelerator slot
+        #: before it is pinned to the CPU slots (at least 1)
+        self.tpu_attempt_retries = max(1, int(_conf_value(
+            self.conf, "tpumr.tpu.attempt.retries")))
+        #: distinct maps with such a failure before the job's accelerator
+        #: pass is quarantined
+        self.tpu_quarantine_tips = max(1, int(_conf_value(
+            self.conf, "tpumr.tpu.job.quarantine.tips")))
+        #: the job-level accelerator quarantine: the scheduler's accelerator
+        #: pass skips the job, and its CPU budget is never starved (else the
+        #: job would wait on a pass that never comes)
+        self.tpu_disabled = False
+        #: maps demoted to the CPU slots
+        self._cpu_only_maps: "set[int]" = set()
+        #: maps that ever took a device or compile failure
+        self._tpu_failed_tips: "set[int]" = set()
+        #: demotion and quarantine decisions, drained by the master
+        self._accel_events: "list[dict]" = []
         self.finished_maps = 0
         self.finished_reduces = 0
         #: set by the master once the job's output is committed or aborted:
@@ -257,6 +283,29 @@ class JobInProgress:
         a kernel mapper (``tpumr.map.kernel``) gets accelerator slots."""
         return bool(self.conf.get("tpumr.map.kernel"))
 
+    def tpu_eligible(self) -> bool:
+        """May the accelerator pass offer this job work? The kernel gate
+        and the job-level quarantine."""
+        return self.has_kernel() and not self.tpu_disabled
+
+    def cpu_pinned_pending_count(self) -> int:
+        """Pending maps that only a CPU slot may take (demoted maps): no
+        starvation rule may zero the job's CPU budget while there are
+        any."""
+        with self.lock:
+            return len(self._pending_maps & self._cpu_only_maps)
+
+    def has_accel_events(self) -> bool:
+        """Whether a drain would find anything (a hint without the lock,
+        stale by at most one heartbeat)."""
+        return bool(self._accel_events)
+
+    def drain_accel_events(self) -> "list[dict]":
+        """The demotion and quarantine decisions since the last drain."""
+        with self.lock:
+            out, self._accel_events = self._accel_events, []
+            return out
+
     def cpu_map_mean_time(self) -> float:
         """Mean runtime of the finished CPU maps; 0.0 until one finished,
         so that the scheduler assigns unconditionally until then."""
@@ -272,8 +321,10 @@ class JobInProgress:
             if self.finished_tpu_maps else 0.0
 
     def acceleration_factor(self) -> float:
-        """cpuMean / tpuMean; 1.0 until both backends have a finished
-        map."""
+        """cpuMean / tpuMean; 1.0 until both backends have a finished map,
+        and again once the job's accelerator pass is quarantined."""
+        if self.tpu_disabled:
+            return 1.0
         cpu, tpu = self.cpu_map_mean_time(), self.tpu_map_mean_time()
         if cpu > 0 and tpu > 0:
             return cpu / tpu
@@ -303,14 +354,16 @@ class JobInProgress:
     def obtain_new_map_task(self, host: str, run_on_tpu: bool,
                             tpu_device_id: int = -1) -> "Task | None":
         """The next pending map for a slot on ``host``: a split stored on
-        ``host`` first, else the lowest pending index; a CPU slot skips
-        the maps whose accelerator attempt failed. Stamps the placement on
-        the task's report."""
+        ``host`` first, else the lowest pending index; an accelerator slot
+        skips the demoted maps, and a quarantined job gives it none. Stamps
+        the placement on the task's report."""
         with self.lock:
             if self.state != JobState.RUNNING:
                 return None
-            eligible = (self._pending_maps if run_on_tpu
-                        else self._pending_maps - self._gpu_only_maps)
+            if run_on_tpu and self.tpu_disabled:
+                return None
+            eligible = (self._pending_maps - self._cpu_only_maps
+                        if run_on_tpu else self._pending_maps)
             if not eligible:
                 return None
             local = self.host_cache.get(host, set()) & eligible
@@ -395,12 +448,15 @@ class JobInProgress:
             runtime = status.runtime
             a = self._ewma_alpha
             if status.run_on_tpu:
-                self.finished_tpu_maps += 1
-                self._tpu_time_sum += runtime
-                if a:
-                    self._tpu_ewma = (runtime if not self._tpu_ewma
-                                      else a * runtime
-                                      + (1 - a) * self._tpu_ewma)
+                # after a quarantine an accelerator completion counts in
+                # neither profile: the unwound sums must not come back
+                if not self.tpu_disabled:
+                    self.finished_tpu_maps += 1
+                    self._tpu_time_sum += runtime
+                    if a:
+                        self._tpu_ewma = (runtime if not self._tpu_ewma
+                                          else a * runtime
+                                          + (1 - a) * self._tpu_ewma)
             else:
                 self.finished_cpu_maps += 1
                 self._cpu_time_sum += runtime
@@ -432,8 +488,9 @@ class JobInProgress:
             # KILLED attempts (lost trackers, lost commit races) do not
             # count toward the attempt limit
             tip.failures += 1
-            if tip.is_map and status.run_on_tpu:
-                self._gpu_only_maps.add(tip.partition)
+            if (tip.is_map and status.run_on_tpu
+                    and status.failure_class in FailureClass.ACCELERATOR):
+                self._note_tpu_failure(tip, status)
         limit = (self.max_map_attempts if tip.is_map
                  else self.max_reduce_attempts)
         if status.state == TaskState.FAILED and tip.failures >= limit:
@@ -452,6 +509,36 @@ class JobInProgress:
             self._pending_maps.add(tip.partition)
         else:
             self._pending_reduces.add(tip.partition)
+
+    def _note_tpu_failure(self, tip: TaskInProgress,
+                          status: TaskStatus) -> None:
+        """One device or compile failure of an accelerator attempt: the map
+        toward demotion, the job toward quarantine. Caller holds
+        ``lock``."""
+        tip.tpu_failures += 1
+        self._tpu_failed_tips.add(tip.partition)
+        if (tip.partition not in self._cpu_only_maps
+                and tip.tpu_failures >= self.tpu_attempt_retries):
+            self._cpu_only_maps.add(tip.partition)
+            self.counters.incr(JobCounter.GROUP, JobCounter.TPU_DEMOTIONS)
+            self._accel_events.append({
+                "kind": "tip_demoted", "task_id": str(tip.task_id),
+                "attempt_id": str(status.attempt_id),
+                "failure_class": status.failure_class,
+                "tpu_failures": tip.tpu_failures})
+        if (not self.tpu_disabled
+                and len(self._tpu_failed_tips) >= self.tpu_quarantine_tips):
+            # enough distinct maps indict the kernel or the cards: no more
+            # accelerator work for this job, and a factor of 1.0, since a
+            # poisoned one would keep starving the CPU pass it now needs
+            self.tpu_disabled = True
+            self.finished_tpu_maps = 0
+            self._tpu_time_sum = 0.0
+            self._tpu_ewma = 0.0
+            self._accel_events.append({
+                "kind": "job_tpu_quarantined",
+                "failed_tips": len(self._tpu_failed_tips),
+                "attempt_id": str(status.attempt_id)})
 
     def _obsolete_map_output(self, tip: TaskInProgress, aid: str) -> str:
         """Withdraw a published map output: its events marked ``OBSOLETE``
@@ -534,7 +621,7 @@ class JobInProgress:
                     f"could not fetch this attempt's output from {addr}")
             # burned: a map whose output keeps vanishing fails the job like
             # any task that keeps failing. It did not fail on the device,
-            # so it goes back for any slot (not _gpu_only_maps).
+            # so it goes back for any slot.
             tip.failures += 1
             tip.state = "pending"
             tip.successful_attempt = ""
@@ -654,5 +741,7 @@ class JobInProgress:
                 "placement_seq": "".join(
                     b for _, b in self.placement_series[-512:]),
                 "cpu_starved_heartbeats": self.cpu_starved_heartbeats,
+                "tpu_disabled": self.tpu_disabled,
+                "tpu_demoted_tips": len(self._cpu_only_maps),
                 "error": self.error,
             }

@@ -22,11 +22,23 @@ job's ``fetch_failure_notification``; where the job withdraws the output
 and re-executes the map, the burned attempt's commit grant is revoked
 (:meth:`JobMaster._fetch_failure`).
 
+Accelerator faults (``:414-420, 2780-2850, 2944, 3036-3050``): each folded
+job's demotion and quarantine decisions are drained
+(``JobInProgress.drain_accel_events``) into the master's metrics
+(``tpu_demotions``, ``jobs_tpu_quarantined``); an attempt a runner reaped
+(FAILED, class ``timeout``) counts once in its job's
+``TASKS_REAPED_TIMEOUT`` and in ``tasks_reaped_timeout``, however often a
+beat carrying it is replayed. A runner whose health script reports it
+unhealthy gets no task; :meth:`JobMaster.get_active_trackers` names it
+with the script's report. :meth:`JobMaster.get_metrics` serves the
+counts, with the cards quarantined across the runners.
+
 RPC methods: ``submit_job(conf_dict, splits)`` (``:1326``),
 ``heartbeat(status, initial_contact, ask_for_new_task, response_id)``,
 ``get_job_status`` (``:1636``), ``get_counters``, ``get_task_reports``,
 ``get_map_completion_events`` (``:1893``), ``get_job_conf``,
-``can_commit`` (``:2373``), ``kill_job``, ``list_jobs`` (``:1503``) and
+``can_commit`` (``:2373``), ``kill_job``, ``list_jobs`` (``:1503``),
+``get_active_trackers`` (``:1773``), ``get_metrics`` and
 ``get_protocol_version``. The master is the scheduler's
 ``TaskTrackerManager`` (``running_jobs``, ``num_trackers``,
 ``total_slots``).
@@ -46,7 +58,8 @@ client uses). ``get_pipeline_status``, ``list_pipelines``,
 ``handoff_purgeable`` serve clients and runners. A lost runner's handoff
 announcements are withdrawn with its map outputs.
 
-Left out (``ROADMAP.md``): job history, tracing and metrics, the sharded
+Left out (``ROADMAP.md``): job history, tracing and the metrics registry
+(the port keeps the fault-tolerance counts only), the sharded
 tracker registry and lock ranks, ACLs, queues and tokens, the HTTP pages,
 restart recovery (of jobs and pipelines) and tracker adoption, the
 heartbeat delta encoding, blacklisting (so the fault that a lost output
@@ -63,12 +76,13 @@ import threading
 import time
 from typing import Any
 
+from tpumr_torch.core.counters import JobCounter
 from tpumr_torch.ipc.rpc import RpcServer
 from tpumr_torch.mapred.ids import JobID, TaskAttemptID
 from tpumr_torch.mapred.job_in_progress import JobInProgress, JobState
 from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.scheduler import HybridQueueScheduler
-from tpumr_torch.mapred.task import TaskState, TaskStatus
+from tpumr_torch.mapred.task import FailureClass, TaskState, TaskStatus
 from tpumr_torch.pipeline.graph import JobGraph
 from tpumr_torch.pipeline.handoff import build_handoff_splits
 from tpumr_torch.pipeline.pipeline_in_progress import (PipelineInProgress,
@@ -132,6 +146,9 @@ class JobMaster:
         self._pipe_lock = threading.Lock()
         self._next_pipe = 0
         self._pipe_wake = threading.Event()
+        #: the fault-tolerance counts :meth:`get_metrics` serves
+        self._metrics = {"tpu_demotions": 0, "jobs_tpu_quarantined": 0,
+                         "tasks_reaped_timeout": 0}
         self._server = RpcServer(self, host, port)
         self._stop = threading.Event()
         self._expire_thread = threading.Thread(
@@ -170,6 +187,34 @@ class JobMaster:
     def num_trackers(self) -> int:
         with self.lock:
             return max(1, len(self.trackers))
+
+    def get_active_trackers(self) -> "list[str]":
+        """The runners' names; an unhealthy one followed by a tab and
+        ``UNHEALTHY: <the health script's report>``."""
+        out = []
+        with self.lock:
+            for name in sorted(self.trackers):
+                st = self.trackers[name].status or {}
+                if st.get("healthy", True):
+                    out.append(name)
+                else:
+                    reason = st.get("health_report", "") or "unhealthy"
+                    out.append(f"{name}\tUNHEALTHY: {reason}")
+        return out
+
+    def get_metrics(self) -> dict:
+        """Demotions, job quarantines and reaps since the start, and the
+        cards quarantined on the runners now."""
+        with self.lock:
+            out = dict(self._metrics)
+            out["tpu_devices_quarantined"] = sum(
+                len(t.status.get("quarantined_tpu_devices") or [])
+                for t in self.trackers.values())
+        return out
+
+    def _count(self, key: str) -> None:
+        with self.lock:
+            self._metrics[key] += 1
 
     def total_slots(self) -> dict:
         out = {"cpu": 0, "tpu": 0, "reduce": 0}
@@ -392,11 +437,27 @@ class JobMaster:
             jip = self.jobs.get(str(ts.attempt_id.task.job))
             if jip is None:
                 continue
+            aid = str(ts.attempt_id)
             with jip.lock:
                 before = jip.state
+                tip = jip.tip_of_attempt(aid)
+                prev = tip.attempts.get(aid) if tip is not None else None
+                reaped = (ts.state == TaskState.FAILED
+                          and ts.failure_class == FailureClass.TIMEOUT
+                          and (prev is None
+                               or prev.state not in TaskState.TERMINAL))
                 jip.update_task_status(ts, addr)
+                if reaped:   # once an attempt, however often replayed
+                    jip.counters.incr(JobCounter.GROUP,
+                                      JobCounter.TASKS_REAPED_TIMEOUT)
                 done = (before == JobState.RUNNING
                         and jip.state in JobState.TERMINAL)
+            if reaped:
+                self._count("tasks_reaped_timeout")
+            if jip.has_accel_events():
+                for ev in jip.drain_accel_events():
+                    self._count("tpu_demotions" if ev["kind"] == "tip_demoted"
+                                else "jobs_tpu_quarantined")
             if ts.state in (TaskState.FAILED, TaskState.KILLED):
                 # a dead attempt must not keep its commit grant
                 self._revoke_commit(str(ts.attempt_id.task),

@@ -26,6 +26,14 @@ identity mapper's split moves there whole as one batch
 (:func:`_host_batch_fast_path`). Both take the flag from the class's own
 ``__dict__``: a subclass that overrides ``map`` without declaring it again
 runs record by record.
+
+A map polls its attempt's kill flag (``Reporter.raise_if_aborted``) every
+512 records of the counted reader and at the runners' batch boundaries,
+and the fault seam ``task.hang`` / ``task.hang.m<index>`` of ``utils/fi``
+makes it stop reporting and poll only that flag (:func:`_hang_silently`,
+``:234-236, 340-355``), as a hung attempt does until the node runner's
+reaper fails it. The attempt's reporter rides on ``task.reporter`` for a
+kernel mapper that waits and must stay killable (``examples/sleep``).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.shuffle_copier import spill_region_segment
 from tpumr_torch.mapred.split import DenseSplit, InputSplit
 from tpumr_torch.mapred.task import Task
+from tpumr_torch.utils.fi import fires
 from tpumr_torch.utils.reflection import new_instance
 
 
@@ -205,7 +214,11 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
     instead and returns ``("", {})``."""
     from tpumr_torch.mapred.gpu_runner import GpuMapRunner
     reporter = reporter or Reporter()
+    task.reporter = reporter
     conf = localize_task_conf(conf, task)
+    if fires("task.hang", conf) or fires(f"task.hang.m{task.partition}",
+                                         conf):
+        _hang_silently(reporter)
     t0 = time.monotonic()
     if task.run_on_tpu:
         runner_cls = GpuMapRunner
@@ -261,6 +274,15 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
     reporter.incr_counter(BackendCounter.GROUP, backend_ms,
                           int((time.monotonic() - t0) * 1000))
     return out
+
+
+def _hang_silently(reporter: Reporter) -> None:
+    """The ``task.hang`` fault: no progress, status or counter from here
+    on, only the kill flag polled, so that the reaper's kill ends the
+    thread."""
+    while True:
+        reporter.raise_if_aborted()
+        time.sleep(0.05)
 
 
 def _declared_mapper_class(conf: Any, attr: str) -> "type | None":
@@ -338,11 +360,10 @@ def _cpu_runner_class(conf: Any) -> type:
     """A CPU slot's runner: the batch runner for a job whose kernel has a
     host twin (``map_batch_cpu``), unless ``tpumr.cpu.batch.map=false``
     opts out; else the job's per-record runner."""
-    from tpumr_torch.mapred.gpu_runner import CpuBatchMapRunner
-    name = conf.get_map_kernel()
-    if name and conf.get_boolean("tpumr.cpu.batch.map", True):
-        from tpumr_torch.ops import get_kernel
-        if get_kernel(name).map_batch_cpu is not None:
+    from tpumr_torch.mapred.gpu_runner import CpuBatchMapRunner, job_kernel
+    if (conf.get_map_kernel()
+            and conf.get_boolean("tpumr.cpu.batch.map", True)):
+        if job_kernel(conf).map_batch_cpu is not None:
             return CpuBatchMapRunner
     return conf.get_map_runner_class()
 
@@ -350,8 +371,12 @@ def _cpu_runner_class(conf: Any) -> type:
 def _counted_reader(in_fmt: Any, split: "InputSplit | None", conf: Any,
                     reporter: Reporter) -> Iterator[tuple[Any, Any]]:
     """The split's records, each counted in ``MAP_INPUT_RECORDS`` as it is
-    read. Lazy: a runner that stages the split whole never opens it."""
-    for k, v in in_fmt.get_record_reader(split, conf, reporter):
+    read, the kill flag polled every 512. Lazy: a runner that stages the
+    split whole never opens it."""
+    for i, (k, v) in enumerate(in_fmt.get_record_reader(split, conf,
+                                                        reporter)):
+        if (i & 0x1FF) == 0:
+            reporter.raise_if_aborted()
         reporter.incr_counter(TaskCounter.FRAMEWORK_GROUP,
                               TaskCounter.MAP_INPUT_RECORDS)
         yield k, v

@@ -7,8 +7,8 @@ there) runs:
 
 - the accelerator pass first: one map per free accelerator slot, each
   given a concrete free device id from the runner's status, consumed
-  within the heartbeat; only jobs naming a kernel mapper take part (the
-  kernel gate, ``JobInProgress.has_kernel``);
+  within the heartbeat; only jobs naming a kernel mapper and not
+  quarantined take part (``JobInProgress.tpu_eligible``);
 - the CPU pass, up to each job's CPU budget. With
   ``mapred.jobtracker.map.optionalscheduling`` a job's budget drops to 0
   while its pending maps fit the accelerators, ``pending <
@@ -16,7 +16,11 @@ there) runs:
   converges onto the faster backend; with ``tpumr.scheduler.mode=minimize``
   (cluster or job conf) the budget is the CPU share that minimises
   ``max(ceil(x/n_cpu) t_cpu, ceil(y/n_gpu) t_gpu)``
-  (:meth:`HybridQueueScheduler._minimize_cpu_share`, ``:421-441``);
+  (:meth:`HybridQueueScheduler._minimize_cpu_share`, ``:421-441``). A job
+  whose accelerator pass is quarantined keeps its whole CPU budget, and
+  one with demoted maps pending is never starved and under ``minimize``
+  keeps a CPU slot for each (``:295-315``): otherwise no pass could take
+  them;
 - at most one reduce per heartbeat.
 
 A node runner that reports ``available_memory_mb`` only receives tasks
@@ -25,9 +29,7 @@ submission order, a pipeline's stage jobs at the pipeline's submission
 (``:98-106``).
 
 Left out (``ROADMAP.md``): devcache-affinity deferral, the FIFO-order
-cache, scheduler metrics, and the demotion floor of CPU-pinned maps (the
-port has no demotion: a map whose accelerator attempt failed waits for an
-accelerator slot, ``JobInProgress.obtain_new_map_task``).
+cache and scheduler metrics.
 """
 
 from __future__ import annotations
@@ -120,14 +122,16 @@ class HybridQueueScheduler(TaskScheduler):
             if b is not None:
                 return b
             b = free_cpu
-            if job.has_kernel():
+            if job.tpu_eligible():
                 accel = job.acceleration_factor()
                 mode = str(job.conf.get("tpumr.scheduler.mode",
                                         cluster_mode))
                 if mode == "minimize":
-                    b = self._minimize_cpu_share(job, free_cpu,
-                                                 max_tpu * n_trackers)
+                    b = max(self._minimize_cpu_share(job, free_cpu,
+                                                     max_tpu * n_trackers),
+                            min(free_cpu, job.cpu_pinned_pending_count()))
                 elif (self._optional_scheduling(job)
+                        and job.cpu_pinned_pending_count() == 0
                         and job.pending_map_count()
                         < accel * max_tpu * n_trackers):
                     b = 0   # starve this job's CPU share
@@ -143,7 +147,7 @@ class HybridQueueScheduler(TaskScheduler):
                 break
             task = None
             for job in jobs:
-                if not job.has_kernel() or job.pending_map_count() == 0:
+                if not job.tpu_eligible() or job.pending_map_count() == 0:
                     continue
                 if not fits(job.map_memory_mb()):
                     continue

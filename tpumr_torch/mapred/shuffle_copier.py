@@ -59,6 +59,7 @@ from typing import Any, Callable, Iterable, Iterator
 from tpumr_torch.core.counters import TaskCounter
 from tpumr_torch.io import ifile
 from tpumr_torch.io.compress import get_codec, wire_codec_or_none
+from tpumr_torch.mapred.api import TaskKilledError
 
 #: a chunk source: ``fetch(map_index, partition, offset)`` returns a dict
 #: with ``data`` (payload bytes from ``offset``), ``total`` (the payload's
@@ -88,10 +89,6 @@ def _int(conf: Any, key: str) -> int:
 
 def _float(conf: Any, key: str) -> float:
     return conf.get_float(key, _DEFAULTS[key])
-
-
-class TaskKilledError(RuntimeError):
-    """The attempt was told to stop while it copied or waited."""
 
 
 class ShuffleRamManager:
@@ -785,6 +782,10 @@ class ShuffleCopier:
                 hold = max(ready, self._penalized_until(m))
                 now = time.monotonic()
                 if hold > now:
+                    # waiting out a penalty is liveness, not a hang: a tick
+                    # for the node runner's reaper
+                    if self.reporter is not None:
+                        self.reporter.keepalive()
                     work.put((now, m))
                     time.sleep(min(hold - now, 0.05))
                     continue

@@ -54,7 +54,33 @@ Counterpart of ``NodeRunner`` in ``tpumr/mapred/tasktracker.py``:
   stage's maps get :meth:`NodeRunner._handoff_source` through the conf
   (``:2247``); every ``PURGE_EVERY_BEATS`` heartbeats the runner drops the
   handoff entries whose pipeline has ended, as the master's
-  ``handoff_purgeable`` says (``:1147-1177``).
+  ``handoff_purgeable`` says (``:1147-1177``);
+- the node's self-checks (``:615-650``, ``mapred/node_health.py``): the
+  health script's verdict and report go in every status, and the master
+  gives an unhealthy runner no task; ``TpuDeviceHealth`` counts each
+  accelerator attempt's end against its card (:meth:`NodeRunner.
+  _note_device_result`, ``:1699-1713``): ``tpumr.tpu.device.quarantine.
+  failures`` (default 3; 0 turns it off) device-classed failures in a row
+  take the card out, and the next status advertises one accelerator slot
+  fewer and the card as not free, until the probe (every
+  ``tpumr.tpu.device.probe.interval.ms``, backing off to ``...max.
+  interval.ms``) passes on it again;
+- the failure class: a FAILED attempt's status carries the class its site
+  tagged, else ``task.classify_exception``'s (``:1680-1697``);
+- the hung-task reaper (``:1715-1835``): a thread that samples each running
+  attempt's progress signature (phase, progress, and its live reporter's
+  status, counters and ticks) every quarter of the smallest
+  ``mapred.task.timeout`` in force (0.1-5 s; recomputed as soon as a job's
+  conf arrives, where the JAX package waits out the old interval), and
+  fails an attempt whose
+  signature stayed still for its job's timeout (default 600,000 ms; 0 or
+  less turns it off) with class ``timeout``, setting its kill flag. A map
+  polls the flag at its record and batch boundaries and ends; one that
+  cannot poll (inside a CUDA synchronise) keeps its thread, but its slot
+  counts as free from the next status. The settle guards keep a late
+  finisher from registering output, committing or changing the reaped
+  status. :meth:`NodeRunner.metrics` reports the reaps, the quarantines
+  and the live task threads.
 
 The node decides its device: ``tpumr_torch.device`` of the runner's conf,
 ``cuda`` by default, is set on every job conf it runs, so a job cannot move
@@ -65,14 +91,13 @@ CUDA raises at construction unless the conf asks for the CPU. It has
 accelerator-slot maps take the kernels' plain torch versions.
 
 Left out (``ROADMAP.md``): process isolation (so the umbilical's
-``umbilical_report_fetch_failure``), the hung-task reaper, userlogs,
-profiles, device health and quarantine, the batched map-output serving
-(``serve_batch``), the restart rebinding of ``_map_output_entry``, the
-locator's pooled connections (``RpcClientPool``: here each fetching thread
-keeps one ``RpcClient`` per address, and the locator closes them all),
-cooperative cancellation inside a running map (a killed attempt is
-reported KILLED when it ends), the lost-master backoff and the heartbeat
-delta encoding.
+``umbilical_report_fetch_failure``, the SIGKILL of a reaped child and the
+hook-up of ``node_health.TaskMemoryManager``, which has no child to watch),
+userlogs, profiles, the batched map-output serving (``serve_batch``), the
+restart rebinding of ``_map_output_entry``, the locator's pooled
+connections (``RpcClientPool``: here each fetching thread keeps one
+``RpcClient`` per address, and the locator closes them all), the
+lost-master backoff, the heartbeat delta encoding and the HTTP page.
 """
 
 from __future__ import annotations
@@ -93,15 +118,20 @@ from tpumr_torch.io.compress import wire_compress
 from tpumr_torch.io.fdcache import FdCache
 from tpumr_torch.ipc.rpc import RpcClient, RpcServer
 from tpumr_torch.mapred import device_shuffle
-from tpumr_torch.mapred.api import Reporter
+from tpumr_torch.mapred.api import Reporter, TaskKilledError
+from tpumr_torch.mapred.ids import TaskAttemptID
 from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.jobtracker import PROTOCOL_VERSION
 from tpumr_torch.mapred.map_task import run_map_task
+from tpumr_torch.mapred.node_health import (NodeHealthChecker,
+                                            TpuDeviceHealth, cpu_probe,
+                                            default_tpu_probe)
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.reduce_task import run_reduce_task
-from tpumr_torch.mapred.shuffle_copier import (RemoteChunkSource,
-                                               TaskKilledError)
-from tpumr_torch.mapred.task import Task, TaskPhase, TaskState, TaskStatus
+from tpumr_torch.mapred.shuffle_copier import RemoteChunkSource
+from tpumr_torch.mapred.task import (FailureClass, Task, TaskPhase,
+                                     TaskState, TaskStatus,
+                                     classify_exception)
 from tpumr_torch.pipeline.handoff import (SERVE_PREFIX, HandoffSource,
                                           make_handoff_source, serve_key)
 from tpumr_torch.utils.fi import maybe_fail
@@ -110,6 +140,8 @@ from tpumr_torch.utils.fi import maybe_fail
 JOIN_TIMEOUT_S = 10.0
 #: heartbeats between two sweeps of the handoff entries
 PURGE_EVERY_BEATS = 20
+#: ``mapred.task.timeout``'s default, ms (the JAX package's)
+TASK_TIMEOUT_MS = 600_000
 
 _log = logging.getLogger(__name__)
 
@@ -317,11 +349,13 @@ class NodeRunner:
         self.max_reduce_slots = conf.get_int(
             "mapred.tasktracker.reduce.tasks.maximum", 2)
         self.device_key = str(conf.get(DEVICE_KEY) or "cuda")
+        on_cpu = True
         if self.max_tpu_map_slots > 0:
             # no CUDA and no request for the CPU: raise, never run the
             # accelerator slots somewhere else
             dev = select_device(conf)
-            if dev.type == "cpu":
+            on_cpu = dev.type == "cpu"
+            if on_cpu:
                 self.n_tpu_devices = n_tpu_devices or 1
             else:
                 import torch
@@ -367,29 +401,70 @@ class NodeRunner:
         #: upstream job -> the stream source its downstream maps share
         self._handoff_sources: "dict[str, HandoffSource]" = {}
         self._beats = 0
+        script = conf.get("mapred.healthChecker.script.path")
+        self.health: "NodeHealthChecker | None" = (
+            NodeHealthChecker(script, interval_s=conf.get_int(
+                "mapred.healthChecker.interval.ms", 10_000) / 1000.0)
+            if script else None)
+        dq_threshold = conf.get_int("tpumr.tpu.device.quarantine.failures", 3)
+        self.device_health: "TpuDeviceHealth | None" = None
+        if self.max_tpu_map_slots > 0 and dq_threshold > 0:
+            self.device_health = TpuDeviceHealth(
+                self.n_tpu_devices, threshold=dq_threshold,
+                probe=cpu_probe if on_cpu else default_tpu_probe,
+                probe_interval_s=conf.get_int(
+                    "tpumr.tpu.device.probe.interval.ms", 10_000) / 1000.0,
+                probe_max_interval_s=conf.get_int(
+                    "tpumr.tpu.device.probe.max.interval.ms",
+                    300_000) / 1000.0)
+        #: the reaper's books: when each running attempt last showed
+        #: progress (monotonic), its last signature, and its live reporter
+        self._last_progress: "dict[str, float]" = {}
+        self._progress_sigs: "dict[str, tuple]" = {}
+        self._live_reporters: "dict[str, Reporter]" = {}
+        self.tasks_reaped_timeout = 0
+        self.tpu_device_quarantines = 0
+        #: set when a job's conf arrives (its timeout may be the smallest)
+        #: and at stop: the reaper recomputes its wait at once
+        self._reaper_wake = threading.Event()
         self._server = RpcServer(self, "127.0.0.1", 0)
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, name=f"heartbeat-{self.name}",
+            daemon=True)
+        self._reaper_thread = threading.Thread(
+            target=self._reaper_loop, name=f"task-reaper-{self.name}",
             daemon=True)
 
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> "NodeRunner":
+        # the health script's first verdict goes with the first heartbeat:
+        # an unhealthy node must not take a task before its script has run
+        if self.health is not None:
+            self.health.start()
         self._server.start()
         self._hb_thread.start()
+        self._reaper_thread.start()
         return self
 
     def stop(self) -> None:
-        """Stop heartbeating, join the task threads (each for at most
-        ``JOIN_TIMEOUT_S``), close the shuffle server and the master
+        """Stop heartbeating and reaping, join the task threads (each for
+        at most ``JOIN_TIMEOUT_S``; a running task sees its kill flag set),
+        stop the self-checks, close the shuffle server and the master
         connection, and delete the runner's local directory."""
         self._stop.set()
-        if self._hb_thread.is_alive():
-            self._hb_thread.join(JOIN_TIMEOUT_S)
+        self._reaper_wake.set()
+        for t in (self._hb_thread, self._reaper_thread):
+            if t.is_alive():
+                t.join(JOIN_TIMEOUT_S)
         with self.lock:
             threads = list(self._task_threads)
         for t in threads:
             t.join(JOIN_TIMEOUT_S)
+        if self.health is not None:
+            self.health.stop()
+        if self.device_health is not None:
+            self.device_health.stop()
         self._server.stop()
         self.master.close()
         with self.lock:
@@ -419,13 +494,21 @@ class NodeRunner:
                 cpu += 1
         return cpu, tpu, red
 
+    def _quarantined(self) -> "list[int]":
+        return (self.device_health.quarantined()
+                if self.device_health is not None else [])
+
     def _available_tpu_devices(self) -> "list[bool]":
-        """free[i]: no running accelerator attempt holds device i."""
+        """free[i]: device i is not quarantined and no running accelerator
+        attempt holds it."""
         free = [True] * self.n_tpu_devices
         for st in self.running.values():
             if (st.state == TaskState.RUNNING and st.run_on_tpu
                     and 0 <= st.tpu_device_id < self.n_tpu_devices):
                 free[st.tpu_device_id] = False
+        for d in self._quarantined():
+            if 0 <= d < self.n_tpu_devices:
+                free[d] = False
         return free
 
     def _status_dict(self) -> dict:
@@ -438,13 +521,17 @@ class NodeRunner:
                 avail_mb = max(0, total_mb - used)
             else:
                 avail_mb = -1
+            # a quarantined card's slot is not advertised until restored
+            quarantined = self._quarantined()
             return {
                 "tracker_name": self.name,
                 "host": self.host,
                 "shuffle_addr": f"127.0.0.1:{self.shuffle_port}",
                 "shuffle_port": self.shuffle_port,
                 "max_cpu_map_slots": self.max_cpu_map_slots,
-                "max_tpu_map_slots": self.max_tpu_map_slots,
+                "max_tpu_map_slots": max(
+                    0, self.max_tpu_map_slots - len(quarantined)),
+                "quarantined_tpu_devices": quarantined,
                 "max_reduce_slots": self.max_reduce_slots,
                 "count_cpu_map_tasks": cpu,
                 "count_tpu_map_tasks": tpu,
@@ -454,6 +541,10 @@ class NodeRunner:
                 "task_statuses": [st.to_dict()
                                   for st in self.running.values()],
                 "fetch_failures": list(self._fetch_failures),
+                "healthy": (self.health.healthy
+                            if self.health is not None else True),
+                "health_report": (self.health.report
+                                  if self.health is not None else ""),
             }
 
     # ------------------------------------------------------------ heartbeat
@@ -473,7 +564,7 @@ class NodeRunner:
     def _heartbeat_once(self) -> None:
         full = self._status_dict()
         ask = (full["count_cpu_map_tasks"] < self.max_cpu_map_slots
-               or full["count_tpu_map_tasks"] < self.max_tpu_map_slots
+               or full["count_tpu_map_tasks"] < full["max_tpu_map_slots"]
                or full["count_reduce_tasks"] < self.max_reduce_slots)
         resp = self.master.call("heartbeat", full, self._initial_contact,
                                 ask, self._response_id)
@@ -486,9 +577,15 @@ class NodeRunner:
             del self._fetch_failures[:len(full["fetch_failures"])]
             for sd in full["task_statuses"]:
                 if sd["state"] in TaskState.TERMINAL:
-                    self.running.pop(sd["attempt_id"], None)
-                    self.running_tasks.pop(sd["attempt_id"], None)
-                    self._kill_requested.discard(sd["attempt_id"])
+                    aid = sd["attempt_id"]
+                    self.running.pop(aid, None)
+                    self.running_tasks.pop(aid, None)
+                    self._last_progress.pop(aid, None)
+                    self._progress_sigs.pop(aid, None)
+                    # a reaped attempt's thread may still run: its kill
+                    # flag stays until the thread ends (_run_task)
+                    if aid not in self._live_reporters:
+                        self._kill_requested.discard(aid)
         for action in resp["actions"]:
             self._apply_action(action)
         self._beats += 1
@@ -560,6 +657,7 @@ class NodeRunner:
                 jc.set("tpumr.pipeline.handoff.source", self._handoff_source)
             with self.lock:
                 jc = self.job_confs.setdefault(job_id, jc)
+            self._reaper_wake.set()
         return jc
 
     def _launch(self, job_id: str, task: Task) -> None:
@@ -576,10 +674,21 @@ class NodeRunner:
         with self.lock:
             self.running[aid] = status
             self.running_tasks[aid] = task
+            self._last_progress[aid] = time.monotonic()
             self._task_threads.add(t)
         t.start()
 
     def _run_task(self, job_id: str, task: Task, status: TaskStatus) -> None:
+        aid = str(task.attempt_id)
+
+        def on_progress(f: float) -> None:
+            # never backwards: a late report must not undo the settle's 1.0
+            status.progress = max(status.progress, min(1.0, float(f)))
+
+        reporter = Reporter(abort_check=lambda: self._killed(aid),
+                            on_progress=on_progress)
+        with self.lock:
+            self._live_reporters[aid] = reporter
         sem = (self._red_sem if not task.is_map
                else self._tpu_sem if task.run_on_tpu else self._cpu_sem)
         try:
@@ -587,27 +696,39 @@ class NodeRunner:
                 if self._stop.is_set():
                     return
             try:
-                self._run_task_inner(job_id, task, status)
+                self._run_task_inner(job_id, task, status, reporter)
             finally:
                 sem.release()
         finally:
             with self.lock:
                 self._task_threads.discard(threading.current_thread())
+                self._live_reporters.pop(aid, None)
+                if aid not in self.running:   # its end already reported
+                    self._kill_requested.discard(aid)
 
     def _killed(self, aid: str) -> bool:
         with self.lock:
             return aid in self._kill_requested or self._stop.is_set()
 
-    def _run_task_inner(self, job_id: str, task: Task,
-                        status: TaskStatus) -> None:
+    def _abort_if_settled(self, status: TaskStatus) -> None:
+        """A settle guard: an attempt the reaper already failed must not
+        register output or take the commit (a grant to a dead attempt
+        would deny every re-run its commit)."""
+        with self.lock:
+            if status.state in TaskState.TERMINAL:
+                raise TaskKilledError("attempt settled while still running "
+                                      "(reaped for silence)")
+
+    def _run_task_inner(self, job_id: str, task: Task, status: TaskStatus,
+                        reporter: Reporter) -> None:
         aid = str(task.attempt_id)
-        reporter = Reporter()
         try:
             conf = self._job_conf(job_id)
             local_dir = os.path.join(self.local_root, job_id, aid)
             handoff = None
             if task.is_map:
                 path, index = run_map_task(conf, task, local_dir, reporter)
+                self._abort_if_settled(status)
                 if path:
                     # stamped with the attempt that made it: the serving
                     # seams target attempt generations, and a re-run
@@ -618,7 +739,7 @@ class NodeRunner:
                         self.map_outputs[(job_id, task.partition)] = \
                             (path, index)
             else:
-                locator = self._map_locator(job_id, aid)
+                locator = self._map_locator(job_id, aid, reporter)
                 try:
                     if device_shuffle.is_device_shuffle(conf):
                         # the gang task: every map's dense output, sorted
@@ -637,10 +758,13 @@ class NodeRunner:
                 finally:
                     locator.close()
                 status.phase = TaskPhase.REDUCE
+                self._abort_if_settled(status)
             committed = self._commit(conf, task)
             if handoff is not None:
                 self._register_handoff(job_id, task, handoff, committed)
             with self.lock:
+                if status.state in TaskState.TERMINAL:
+                    return   # reaped meanwhile: the late finish changes nothing
                 status.counters = reporter.counters.to_dict()
                 status.progress = 1.0
                 status.finish_time = time.time()
@@ -651,17 +775,43 @@ class NodeRunner:
                     status.state = (TaskState.KILLED
                                     if aid in self._kill_requested
                                     else TaskState.SUCCEEDED)
+            if status.state == TaskState.SUCCEEDED:
+                self._note_device_result(task, None)
         except TaskKilledError as e:
             with self.lock:
+                if status.state in TaskState.TERMINAL:
+                    return   # reaped: FAILED, class timeout, already
                 status.diagnostics = str(e)
                 status.finish_time = time.time()
                 status.state = TaskState.KILLED
         except Exception as e:  # noqa: BLE001 — a failed attempt is data
             with self.lock:
+                if status.state in TaskState.TERMINAL:
+                    return
                 status.diagnostics = (f"{type(e).__name__}: {e}\n"
                                       + traceback.format_exc(limit=8))
                 status.finish_time = time.time()
+                # tagged at its site (the accelerator runner) or classed
+                # by the generic rule
+                status.failure_class = classify_exception(e)
                 status.state = TaskState.FAILED
+            self._note_device_result(task, status.failure_class)
+
+    def _note_device_result(self, task: Task,
+                            failure_class: "str | None") -> None:
+        """An accelerator map's end, counted against its card: a
+        device-classed failure toward the card's quarantine, anything else
+        breaking the streak."""
+        if (self.device_health is None or not task.is_map
+                or not task.run_on_tpu or task.tpu_device_id < 0):
+            return
+        dev = task.tpu_device_id % max(1, self.n_tpu_devices)
+        if failure_class == FailureClass.DEVICE:
+            if self.device_health.record_failure(dev):
+                with self.lock:
+                    self.tpu_device_quarantines += 1
+        else:
+            self.device_health.record_success(dev)
 
     def _register_handoff(self, job_id: str, task: Task, handoff: dict,
                           committed: bool) -> None:
@@ -696,9 +846,11 @@ class NodeRunner:
                                                  200) / 1000.0)
             return src
 
-    def _map_locator(self, job_id: str, attempt_id: str) -> MapLocator:
+    def _map_locator(self, job_id: str, attempt_id: str,
+                     reporter: Reporter) -> MapLocator:
         """A reduce attempt's locator over the job's map-completion feed;
-        a blocked resolve raises ``TaskKilledError`` once the attempt is
+        a blocked resolve ticks the reporter (waiting for a map's re-run is
+        not a hang) and raises ``TaskKilledError`` once the attempt is
         killed or the runner stops."""
         locator = make_map_locator(
             lambda cursor: self.master.call("get_map_completion_events",
@@ -708,6 +860,7 @@ class NodeRunner:
                                         600_000) / 1000.0)
 
         def on_wait() -> None:
+            reporter.keepalive()
             if self._killed(attempt_id):
                 raise TaskKilledError(f"{attempt_id} stopped while waiting "
                                       "for map outputs")
@@ -754,6 +907,117 @@ class NodeRunner:
             return True
         committer.abort_task(aid)
         return False
+
+    # ------------------------------------------------------------ reaper
+
+    def _progress_signature(self, st: TaskStatus,
+                            reporter: "Reporter | None") -> tuple:
+        """What changes while an attempt makes progress: its phase and
+        progress, and its reporter's status line, counter total and
+        ticks."""
+        if reporter is None:
+            return (st.phase, round(st.progress, 6), "", 0, 0)
+        total = sum(v for names in reporter.counters.to_dict().values()
+                    for v in names.values())
+        return (st.phase, round(st.progress, 6), reporter.status, total,
+                reporter.ticks)
+
+    def _task_timeout_s(self, aid: str) -> float:
+        """The attempt's ``mapred.task.timeout``: its job's conf over the
+        runner's over the default; 0 or less turns reaping off."""
+        runner_ms = self.conf.get_int("mapred.task.timeout", TASK_TIMEOUT_MS)
+        try:
+            job_id = str(TaskAttemptID.parse(aid).task.job)
+        except (ValueError, IndexError):
+            return runner_ms / 1000.0
+        with self.lock:
+            jc = self.job_confs.get(job_id)
+        if jc is None:
+            return runner_ms / 1000.0
+        return jc.get_int("mapred.task.timeout", runner_ms) / 1000.0
+
+    def _reaper_wait_s(self) -> float:
+        """A quarter of the smallest timeout in force (the runner's and
+        every cached job's), within [0.1, 5] s."""
+        smallest = self.conf.get_int("mapred.task.timeout", TASK_TIMEOUT_MS)
+        with self.lock:
+            confs = list(self.job_confs.values())
+        for jc in confs:
+            t = jc.get_int("mapred.task.timeout", smallest)
+            if 0 < t < smallest or smallest <= 0 < t:
+                smallest = t
+        if smallest <= 0:
+            return 5.0
+        return max(0.1, min(5.0, smallest / 1000.0 / 4.0))
+
+    def _reaper_loop(self) -> None:
+        while not self._stop.is_set():
+            self._reaper_wake.wait(self._reaper_wait_s())
+            self._reaper_wake.clear()
+            if self._stop.is_set():
+                return
+            try:
+                self._reap_hung_tasks()
+            except Exception:  # noqa: BLE001 — the reaper outlives any one
+                _log.exception("%s: reaper pass failed", self.name)
+
+    def _reap_hung_tasks(self) -> "list[str]":
+        """One pass: note each running attempt's progress and fail those
+        silent past their timeout. Returns the attempts reaped."""
+        now = time.monotonic()
+        with self.lock:
+            snapshot = [(aid, st, self._live_reporters.get(aid))
+                        for aid, st in self.running.items()
+                        if st.state == TaskState.RUNNING]
+        reaped = []
+        for aid, st, reporter in snapshot:
+            sig = self._progress_signature(st, reporter)
+            with self.lock:
+                if self._progress_sigs.get(aid) != sig:
+                    self._progress_sigs[aid] = sig
+                    self._last_progress[aid] = now
+                    continue
+                last = self._last_progress.setdefault(aid, now)
+            timeout_s = self._task_timeout_s(aid)
+            if timeout_s <= 0 or now - last <= timeout_s:
+                continue
+            if self._reap_one(aid, now - last, timeout_s):
+                reaped.append(aid)
+        return reaped
+
+    def _reap_one(self, aid: str, silent_s: float, timeout_s: float) -> bool:
+        """Fail one silent attempt, class ``timeout``, and set its kill flag
+        (the thread ends at its next poll; one that cannot poll keeps
+        running, and the settle guards ignore what it does)."""
+        with self.lock:
+            st = self.running.get(aid)
+            if st is None or st.state in TaskState.TERMINAL:
+                return False
+            self._kill_requested.add(aid)
+            st.diagnostics = (
+                f"Task {aid} failed to report status for {silent_s:.0f} "
+                f"seconds (mapred.task.timeout={int(timeout_s * 1000)} ms). "
+                "Killing!")
+            st.failure_class = FailureClass.TIMEOUT
+            st.finish_time = time.time()
+            st.state = TaskState.FAILED
+            self.tasks_reaped_timeout += 1
+        _log.warning("%s: %s", self.name, st.diagnostics)
+        return True
+
+    def metrics(self) -> dict:
+        """The runner's fault-tolerance counts, and its live task threads
+        (a reaped attempt's thread ends at its next kill poll)."""
+        dh = self.device_health
+        with self.lock:
+            threads = sorted(t.name for t in self._task_threads
+                             if t.is_alive())
+            return {"tasks_reaped_timeout": self.tasks_reaped_timeout,
+                    "tpu_device_quarantines": self.tpu_device_quarantines,
+                    "tpu_devices_quarantined": len(self._quarantined()),
+                    "tpu_device_restores": (dh.restore_events
+                                            if dh is not None else 0),
+                    "task_threads": threads}
 
     # ------------------------------------------------------------ shuffle
 

@@ -7,7 +7,9 @@ use one ``nvcc`` call compiles them all for ``sm_90a`` into one shared
 library under ``tpumr_torch/build/`` (listed in ``.gitignore``), and
 ``ctypes`` loads it. A library newer than every source is reused. Nothing is
 built or loaded at import time: the CPU tests import every module of the
-package on a machine without ``nvcc``.
+package on a machine without ``nvcc``. A build that cannot run or fails, and
+a library that does not load, raise :class:`KernelBuildError`, which the
+task layer classes ``compile`` (``mapred/task.classify_exception``).
 """
 
 from __future__ import annotations
@@ -34,14 +36,18 @@ _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
 
 
+class KernelBuildError(RuntimeError):
+    """The port's CUDA kernels could not be built or loaded."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     found = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
              else shutil.which("nvcc"))
     if not found or not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
-                           "from tpumr_torch/csrc on a machine with the CUDA "
-                           "toolkit (set CUDA_HOME)")
+        raise KernelBuildError("nvcc not found: the port's CUDA kernels are "
+                               "built from tpumr_torch/csrc on a machine "
+                               "with the CUDA toolkit (set CUDA_HOME)")
     return found
 
 
@@ -65,8 +71,8 @@ def build() -> float:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     output = proc.stdout.decode(errors="replace")
     if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: nvcc exit "
-                           f"{proc.returncode}\n{output}")
+        raise KernelBuildError(f"CUDA kernel build failed: nvcc exit "
+                               f"{proc.returncode}\n{output}")
     with open(BUILD_LOG, "w") as f:
         f.write(output)
     os.replace(tmp, LIBRARY)
@@ -89,7 +95,11 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(LIBRARY)
+            try:
+                lib = ctypes.CDLL(LIBRARY)
+            except OSError as e:
+                raise KernelBuildError(f"CUDA kernel library did not load: "
+                                       f"{e}") from e
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.kmeans_assign.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                           i, p]

@@ -1,9 +1,11 @@
 """Fault injection: probabilistic faults at named points of the runtime.
 
-Counterpart of ``tpumr/utils/fi.py`` (the whole module but the
-``failure_class`` stamp of ``maybe_fail``, which waits for the failure
-classes of ``ROADMAP.md`` §1 item 3). A seam calls ``maybe_fail(point,
-conf)``; with nothing configured that is one conf lookup.
+Counterpart of ``tpumr/utils/fi.py``, the whole module. A seam calls
+``maybe_fail(point, conf)``; with nothing configured that is one conf
+lookup. ``failure_class`` stamps the raised fault with a class of
+``mapred/task.FailureClass``, so that a seam stands in for a device or
+compile error; :func:`fires` draws a point without raising, for a fault
+that is a behaviour (a hang) rather than an exception.
 
 Keys of one point:
   tpumr.fi.<point>.probability   fault probability (0, the default,
@@ -16,8 +18,8 @@ Global:
                                  its faults bit for bit; unset, the draws
                                  come from the unseeded ``random`` module
 
-The port's seams are the shuffle's, at qualified names, so that one map's
-output or one attempt generation can be targeted:
+The port's seams, at qualified names, so that one map's output, one attempt
+generation or one card can be targeted:
   shuffle.serve / shuffle.serve.m<map index> / shuffle.serve.a<attempt no>
                                  the runner serving a map output
                                  (``NodeRunner._maybe_fail_serve``)
@@ -26,6 +28,19 @@ output or one attempt generation can be targeted:
                                  (``ShuffleCopier._copy_one``)
   reduce.task                    the start of a reduce attempt
                                  (``reduce_task.run_reduce_task``)
+  tpu.compile                    raises classed ``compile`` before an
+                                 accelerator attempt stages its split
+                                 (``gpu_runner._maybe_fail_accelerator``)
+  tpu.execute / tpu.execute.d<id>
+                                 raises classed ``device`` there, on any
+                                 card or on card ``id`` only
+  task.hang / task.hang.m<idx>   a behaviour: the map stops reporting
+                                 progress and polls only the kill flag
+                                 (``map_task._hang_silently``), until the
+                                 node runner's reaper fails it after
+                                 ``mapred.task.timeout``
+
+``task.slow`` (a straggler, for speculation) is not ported.
 """
 
 from __future__ import annotations
@@ -89,7 +104,12 @@ def fires(point: str, conf: Any = None) -> bool:
     return True
 
 
-def maybe_fail(point: str, conf: Any = None) -> None:
-    """Raise :class:`InjectedFault` when ``point``'s model fires."""
+def maybe_fail(point: str, conf: Any = None,
+               failure_class: str = "") -> None:
+    """Raise :class:`InjectedFault` when ``point``'s model fires, stamped
+    with ``failure_class`` where one is given."""
     if fires(point, conf):
-        raise InjectedFault(f"injected fault at {point}")
+        e = InjectedFault(f"injected fault at {point}")
+        if failure_class:
+            e.failure_class = failure_class  # type: ignore[attr-defined]
+        raise e
