@@ -130,7 +130,30 @@ step. Through the pipeline phase's daemons: examples sleep --tpu
 --hang-map 0 with mapred.task.timeout=2000 must have exactly one attempt
 reaped (class timeout), map 0 succeed on attempt 1 and no task thread stay
 on the runner. Every other cluster job (hybrid, pipeline, the daemons',
-cluster_shuffle) must show no demotion and no reap. It
+cluster_shuffle) must show no demotion and no reap.
+
+Pipes_isolation, the external-process task tier: (a) beside the hybrid
+jobs, native/pipes built into tpumr_torch/build/pipes (native/ untouched),
+python -m tpumr_torch.cli pipes -program wordcount in a process of its
+own, and the wordcount-part, sort and wordcount-nopipe children through
+Submitter.run_job, each against tests/test_pipes.py's counts. On the
+hybrid cluster, a GPU pipes child started beside accel_fault's steps
+holds 4 GB of the card and is SIGKILLed after them: the card's free memory
+must grow by the 4 GB within 5 s. The cluster then stays up, and (b) and
+(c) run on it beside the pipeline phase's TeraSort chain:
+(b) one K-Means round over the hybrid points (8 splits) as a pipes job
+with a CPU executable (numpy) and a GPU executable that binds
+cuda:argv[1] and launches kmeans_assign_partials (scripts written to the
+work directory), non-piped input, a pipes reducer folding the partials:
+centroids against the hybrid phase's float64 Lloyd step, both pools used,
+argv[1] "0" on every GPU attempt, the GPU child's launch counter equal to
+the GPU maps, every attempt on its first try, no demotion, the card's free
+memory back after; (c) the hybrid K-Means job over the first 4 splits in
+the runner's threads and with tpumr.task.isolation=process (CPU maps and
+reduce in child processes, the GPU map in the runner): byte-identical
+parts, and no child that opened the CUDA driver (/dev/nvidia* open in
+/proc/PID/fd, as a first torch.cuda call does) or is among nvidia-smi's
+compute apps. It
 prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -257,6 +280,10 @@ PEAK_BF16_FLOP_PER_S = 989e12
 ACCEL_SPLITS, ACCEL_PROBE_MS, ACCEL_DEVICE_FAULTS = 4, 200, 3
 ACCEL_SLEEP_TIMEOUT_MS = 2000
 ACCEL_CHECK_N = 1_000_000
+#: the pipes_isolation phase: the card memory the killed GPU child holds
+#: (MB), the seconds the card's free memory has to grow by it after the
+#: kill, and the interval of the isolated children's samples (s)
+PIPES_HOLD_MB, PIPES_FREE_S, PIPES_SAMPLE_S = 4096, 5.0, 0.2
 #: the fused kernel's sums against a float64 sum over its own ids: within
 #: this times the sum of |x| of the cluster's points, per dimension (f32
 #: sums of at most a few thousand terms in a row, then in order)
@@ -1238,6 +1265,683 @@ def accel_fault_cluster(c, work: str, n: int, cents, km) -> dict:
     return out
 
 
+def _repo() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+#: what both K-Means pipes executables share: the split's rows read from
+#: the .npy by the child itself (tpumr.pipes.piped.input=false), the
+#: centroids from the job's conf, and the k partial records a map emits
+#: (key: cluster id; value: count, then the d sums, as Python floats)
+PIPES_COMMON = '''\
+#!{python}
+"""A K-Means {role} pipes executable of chip_smoke.py's pipes phase."""
+import time
+
+T0 = time.monotonic()
+import json
+import sys
+
+sys.path.insert(0, {repo!r})
+import numpy as np
+
+from tpumr_torch.pipes import child
+
+
+def _local(path):
+    return path[len("file://"):] if path.startswith("file://") else path
+
+
+def split_rows(ctx):
+    s = json.loads(ctx.input_split.decode())
+    n, cols = int(s["num_rows"]), int(s["cols"])
+    x = np.fromfile(_local(s["path"]), dtype=s["dtype"], count=n * cols,
+                    offset=int(s["data_offset"])
+                    + int(s["row_start"]) * int(s["row_bytes"]))
+    return x.reshape(n, cols)
+
+
+def centroids(ctx):
+    return np.load(_local(ctx.get_job_conf().get(
+        "tpumr.kmeans.centroids"))).astype(np.float32)
+
+
+def emit_partials(ctx, sums, counts):
+    for j in range(len(counts)):
+        if counts[j]:
+            ctx.emit(str(j), " ".join([str(int(counts[j]))]
+                                      + [repr(float(v)) for v in sums[j]]))
+
+
+def count_ms(ctx, role, t_map, t_read):
+    """Milliseconds from the process's start to its map, reading the split
+    and the rest of the map, summed per role in the job's counters."""
+    now = time.monotonic()
+    for name, ms in (("START", t_map - T0), ("READ", t_read - t_map),
+                     ("COMPUTE", now - t_read)):
+        ctx.increment_counter(ctx.get_counter(
+            "KMeansPipes", f"{{role}}_{{name}}_MS"), int(ms * 1000))
+'''
+
+#: the CPU executable: numpy assignment and float64 partial sums for a map;
+#: for the reduce, each cluster's partials folded into its new centroid
+PIPES_CPU_EXE = PIPES_COMMON + '''
+
+class CpuMapper(child.Mapper):
+    def __init__(self, ctx):
+        self.maps = ctx.get_counter("KMeansPipes", "CPU_MAPS")
+
+    def map(self, ctx):
+        t_map = time.monotonic()
+        x, c = split_rows(ctx), centroids(ctx)
+        t_read = time.monotonic()
+        k, d = c.shape
+        c2 = np.einsum("kd,kd->k", c, c)
+        sums, counts = np.zeros((k, d)), np.zeros(k, np.int64)
+        for lo in range(0, x.shape[0], 1 << 16):
+            b = x[lo:lo + (1 << 16)]
+            a = np.argmin(c2[None, :] - 2.0 * (b @ c.T), axis=1)
+            counts += np.bincount(a, minlength=k)
+            for j in range(d):
+                sums[:, j] += np.bincount(a, weights=b[:, j], minlength=k)
+        emit_partials(ctx, sums, counts)
+        ctx.increment_counter(self.maps, 1)
+        count_ms(ctx, "CPU", t_map, t_read)
+
+
+class CentroidFold(child.Reducer):
+    def reduce(self, ctx):
+        total, n = 0.0, 0
+        while ctx.next_value():
+            f = ctx.input_value.split()
+            n += int(f[0])
+            total = total + np.array([float(t) for t in f[1:]])
+        ctx.emit(ctx.input_key, " ".join(repr(float(t)) for t in total / n))
+
+
+class Factory(child.Factory):
+    def create_mapper(self, ctx):
+        return CpuMapper(ctx)
+
+    def create_reducer(self, ctx):
+        return CentroidFold()
+
+
+raise SystemExit(child.run_task(Factory()))
+'''
+
+#: the GPU executable: binds the card argv[1] names (the reference's
+#: cudaSetDevice(argv[1])) and launches kmeans_assign_partials through
+#: tpumr_torch.ops.kmeans.assign_and_partials from the library this process
+#: built (it exits rather than build it again); counts its launches and the
+#: argv[1] it was given in pipes counters. With kmeans.pipes.hold.mb in
+#: the job's conf it only holds that much card memory until killed.
+PIPES_GPU_EXE = PIPES_COMMON + '''
+import torch
+
+from tpumr_torch.ops import kmeans as km
+from tpumr_torch.ops import native
+
+DEVICE = torch.device("cuda", int(sys.argv[1]))
+torch.cuda.set_device(DEVICE)
+if native.stale():   # the parent built the library: never build it here
+    raise SystemExit("the kernel library is stale: not rebuilding it here")
+
+
+class GpuMapper(child.Mapper):
+    def __init__(self, ctx):
+        self.launches = ctx.get_counter("KMeansPipes", "GPU_LAUNCHES")
+        self.bound = ctx.get_counter("KMeansPipes", "ARGV1_" + sys.argv[1])
+
+    def map(self, ctx):
+        hold_mb = ctx.get_job_conf().get_int("kmeans.pipes.hold.mb", 0)
+        if hold_mb:
+            held = torch.ones(hold_mb << 18, device=DEVICE)
+            torch.cuda.synchronize(DEVICE)
+            ctx.set_status(f"holding {{held.numel() * 4 >> 20}} MB")
+            time.sleep(600)
+        t_map = time.monotonic()
+        x = torch.from_numpy(split_rows(ctx)).to(DEVICE)
+        c = torch.from_numpy(centroids(ctx)).to(DEVICE)
+        torch.cuda.synchronize(DEVICE)
+        t_read = time.monotonic()
+        before = km.kmeans_assign_partials.launches
+        _ids, sums, counts = km.assign_and_partials(x, c)
+        emit_partials(ctx, sums.cpu().numpy(), counts.cpu().numpy())
+        ctx.increment_counter(self.launches,
+                              km.kmeans_assign_partials.launches - before)
+        ctx.increment_counter(self.bound, 1)
+        count_ms(ctx, "GPU", t_map, t_read)
+
+
+class Factory(child.Factory):
+    def create_mapper(self, ctx):
+        return GpuMapper(ctx)
+
+
+raise SystemExit(child.run_task(Factory()))
+'''
+
+
+def write_pipes_exes(work: str) -> tuple:
+    """The two executables in ``work``: (CPU path, GPU path)."""
+    paths = []
+    for role, text in (("cpu", PIPES_CPU_EXE), ("gpu", PIPES_GPU_EXE)):
+        path = os.path.join(work, f"kmeans-pipes-{role}.py")
+        with open(path, "w") as f:
+            f.write(text.format(python=sys.executable, repo=_repo(),
+                                role=role.upper()))
+        os.chmod(path, 0o755)
+        paths.append(path)
+    return tuple(paths)
+
+
+def text_parts(path: str) -> dict:
+    """key -> value over a text output's part files."""
+    out = {}
+    for line in read_text_parts(path):
+        k, v = line.split("\t")
+        out[k] = v
+    return out
+
+
+def pipes_cpp(work: str) -> dict:
+    """pipes_isolation (a), host work in processes of its own: native/pipes
+    built into tpumr_torch/build/pipes (native/ untouched); ``python -m
+    tpumr_torch.cli pipes -program wordcount`` in a process; then
+    wordcount-part, sort and wordcount-nopipe through Submitter.run_job.
+    Each result against tests/test_pipes.py's counts for its input."""
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.pipes import Submitter
+    t0 = time.monotonic()
+    build = os.path.join(_repo(), "tpumr_torch", "build", "pipes")
+    proc = subprocess.run(["make", "-C", os.path.join(_repo(), "native",
+                                                      "pipes"),
+                           f"BUILD={build}"], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"pipes_isolation (a): make failed "
+          f"{proc.stderr[-2000:]}")
+    build_s = time.monotonic() - t0
+    d = os.path.join(work, "cpp")
+    os.makedirs(d, exist_ok=True)
+    inputs = {"wc": b"tpu mxu tpu\nici mxu tpu\n" * 10,
+              "part": b"apple crumble apple\nbanana crumble\n" * 5,
+              "sort": ("\n".join(f"k{97 - i:03d}" for i in range(60))
+                       + "\n").encode(),
+              "nopipe": b"red green red\nblue green\n" * 40}
+    for name, data in inputs.items():
+        with open(os.path.join(d, f"{name}.txt"), "wb") as f:
+            f.write(data)
+    t = time.monotonic()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "tpumr_torch.cli", "pipes", "-program",
+         os.path.join(build, "wordcount"), "-input", f"file://{d}/wc.txt",
+         "-output", f"file://{d}/wc-out", "-reduces", "1", "-jobconf",
+         f"tpumr.cache.dir={d}/cache-cli"], cwd=_repo(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        secs = {}
+        for name, exe, reduces, keys in (
+                ("part", "wordcount-part", 2, {}),
+                ("sort", "sort", 1, {}),
+                ("nopipe", "wordcount-nopipe", 1, {
+                    "mapred.map.tasks": 3, "mapred.min.split.size": 1,
+                    "tpumr.pipes.piped.input": False})):
+            conf = JobConf()
+            conf.set_input_paths(f"file://{d}/{name}.txt")
+            conf.set_output_path(f"file://{d}/{name}-out")
+            conf.set_num_reduce_tasks(reduces)
+            conf.set("tpumr.cache.dir", f"{d}/cache")
+            for k, v in keys.items():
+                conf.set(k, v)
+            Submitter.set_executable(conf, os.path.join(build, exe))
+            ts = time.monotonic()
+            check(Submitter.run_job(conf).successful,
+                  f"pipes_isolation (a): {exe} failed")
+            secs[exe] = time.monotonic() - ts
+        _out, err = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    secs["cli_wordcount"] = time.monotonic() - t
+    check(cli.returncode == 0, f"pipes_isolation (a): the pipes command "
+          f"exited {cli.returncode}: {err[-2000:]}")
+    check(text_parts(f"{d}/wc-out") == {"tpu": "30", "mxu": "20",
+                                          "ici": "10"},
+          f"pipes_isolation (a): wordcount {text_parts(f'{d}/wc-out')}")
+    by_part = {}
+    for name in sorted(os.listdir(f"{d}/part-out")):
+        if name.startswith("part-"):
+            with open(os.path.join(d, "part-out", name)) as f:
+                for line in f.read().splitlines():
+                    k, v = line.split("\t")
+                    by_part[k] = (int(name.rsplit("-", 1)[1]), v)
+    check({k: v for k, (_p, v) in by_part.items()}
+          == {"apple": "10", "banana": "5", "crumble": "10"}
+          and all(p == ord(k[0]) % 2 for k, (p, _v) in by_part.items()),
+          f"pipes_isolation (a): wordcount-part {by_part}")
+    keys = [line.split("\t")[0] for line in read_text_parts(f"{d}/sort-out")]
+    check(keys == sorted(f"k{97 - i:03d}" for i in range(60)),
+          f"pipes_isolation (a): sort gave {keys[:5]}...")
+    check(text_parts(f"{d}/nopipe-out") == {"red": "80", "green": "80",
+                                              "blue": "40"},
+          f"pipes_isolation (a): wordcount-nopipe "
+          f"{text_parts(f'{d}/nopipe-out')}")
+    return {"seconds": time.monotonic() - t0, "make_s": build_s,
+            "jobs_s": secs}
+
+
+def card_free_bytes() -> int:
+    torch.cuda.synchronize()
+    return int(torch.cuda.mem_get_info()[0])
+
+
+class HeldCard:
+    """A GPU pipes child that holds PIPES_HOLD_MB of the card until it is
+    SIGKILLed: started at once (its start, torch's import and its CUDA
+    context, runs beside the caller's work), killed by :meth:`kill_check`,
+    after which the card's free memory must grow by what it held within
+    PIPES_FREE_S seconds. :meth:`close` kills it wherever the caller
+    failed first."""
+
+    def __init__(self, gpu_exe: str) -> None:
+        from tpumr_torch.mapred.api import OutputCollector, Reporter
+        from tpumr_torch.mapred.jobconf import JobConf
+        from tpumr_torch.pipes.application import Application
+        from tpumr_torch.pipes.runner import _UplinkCollector
+        self.t0 = time.monotonic()
+        conf = JobConf()
+        conf.set("kmeans.pipes.hold.mb", PIPES_HOLD_MB)
+        self.reporter = Reporter()
+        self.app = Application(
+            conf, gpu_exe, _UplinkCollector(OutputCollector(lambda k, v:
+                                                            None)),
+            self.reporter, run_on_tpu=True, device_ordinal=0)
+        self.app.downlink.start()
+        self.app.downlink.set_job_conf({"kmeans.pipes.hold.mb":
+                                        PIPES_HOLD_MB})
+        self.app.downlink.run_map(b"{}", 0, piped_input=False)
+        self.app.downlink.flush()
+
+    def kill_check(self) -> dict:
+        app = self.app
+        deadline = time.monotonic() + 120
+        while not self.reporter.status.startswith("holding"):
+            check(time.monotonic() < deadline and app.process.poll() is None,
+                  f"pipes_isolation: the holding child never held "
+                  f"(rc {app.process.poll()}, {app.child_error})")
+            time.sleep(0.05)
+        held_s = time.monotonic() - self.t0
+        before = card_free_bytes()
+        t = time.monotonic()
+        app.abort()                     # SIGKILL, then reaped
+        rc = app.process.returncode
+        free = card_free_bytes()
+        while free - before < (PIPES_HOLD_MB << 20) and \
+                time.monotonic() - t < PIPES_FREE_S:
+            time.sleep(0.05)
+            free = card_free_bytes()
+        row = {"status": self.reporter.status, "held_after_s": held_s,
+               "free_before_kill_gb": before / 1e9,
+               "free_after_kill_gb": free / 1e9,
+               "freed_gb": (free - before) / 1e9,
+               "back_s": time.monotonic() - t, "rc": rc}
+        log("pipes_kill " + json.dumps(row))
+        check(rc == -signal.SIGKILL, f"pipes_isolation: the held child "
+              f"exited {rc}, not by SIGKILL")
+        check(free - before >= (PIPES_HOLD_MB << 20), f"pipes_isolation: "
+              f"{(free - before) / 1e9:.3f} GB of the card came back "
+              f"{PIPES_FREE_S} s after the kill, not the "
+              f"{PIPES_HOLD_MB} MB the child held")
+        return row
+
+    def close(self) -> None:
+        self.app.cleanup(kill=True)
+
+
+def pipes_kmeans(c, work: str, exes: tuple, ref: np.ndarray, km) -> dict:
+    """pipes_isolation (b), the reference's hybrid path: one K-Means round
+    over the hybrid points (8 splits) as a pipes job on the hybrid cluster,
+    a CPU and a GPU executable, non-piped input. Gates: the centroids
+    against the hybrid phase's float64 Lloyd step, both pools used, every
+    GPU attempt given argv[1] "0", the GPU launch counter equal to the GPU
+    maps and >= 1, every map and the reduce on attempt 0, no demotion, and
+    no launch in this process. The card's free memory before and after is
+    printed (other processes use the card meanwhile: no gate)."""
+    from tpumr_torch.core.counters import JobCounter
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.mapred.job_client import JobClient
+    from tpumr_torch.pipes import Submitter
+    from tpumr_torch.pipes.submitter import setup_pipes_job
+    conf = c.create_job_conf()
+    conf.set_job_name("pipes-kmeans")
+    conf.set_input_paths(f"file://{work}/pipes-points.npy")
+    conf.set_output_path(f"file://{work}/pipes-km")
+    conf.set_input_format(DenseInputFormat)
+    conf.set("tpumr.dense.split.rows", HYB_ROWS)
+    conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+    conf.set("tpumr.pipes.piped.input", False)
+    conf.set_num_reduce_tasks(1)
+    Submitter.set_executable(conf, exes[0])
+    Submitter.set_tpu_executable(conf, exes[1])
+    setup_pipes_job(conf)
+    free0 = card_free_bytes()
+    zero_launch_counts(km)
+    client = JobClient(conf)
+    try:
+        t = time.monotonic()
+        running = client.submit_job(conf)
+        st = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+        secs = time.monotonic() - t
+        counters = running.counters()
+        reports = running.task_reports("map")
+        reduces = running.task_reports("reduce")
+    finally:
+        client.close()
+    check(st["state"] == "SUCCEEDED", f"pipes_isolation (b): {st['state']} "
+          f"{st.get('error', '')}")
+    free = card_free_bytes()
+    seq = "".join("T" if r["run_on_tpu"] else "c" for r in sorted(
+        reports, key=lambda r: r["start_time"]))
+    pipes = counters.to_dict().get("KMeansPipes", {})
+    jip = c.master.jobs[running.job_id]
+    row = {"job_s": secs, "placement": seq,
+           "finished_tpu_maps": st["finished_tpu_maps"],
+           "finished_cpu_maps": st["finished_cpu_maps"], "counters": pipes,
+           "parent_launches": launch_counts(km),
+           "TPU_DEMOTIONS": jip.counters.value(JobCounter.GROUP,
+                                               JobCounter.TPU_DEMOTIONS),
+           "free_before_gb": free0 / 1e9, "free_after_gb": free / 1e9}
+    got = {int(k): np.array(v.split(), np.float64)
+           for k, v in text_parts(f"{work}/pipes-km").items()}
+    check(sorted(got) == list(range(K)), f"pipes_isolation (b): clusters "
+          f"{sorted(got)}")
+    got = np.stack([got[i] for i in range(K)])
+    err = np.abs(got - ref)
+    row["max_abs_err"] = float(err.max())
+    log("pipes_kmeans " + json.dumps(row))
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL * np.abs(ref))),
+          f"pipes_isolation (b): centroids off the float64 Lloyd step by up "
+          f"to {err.max():.3g}")
+    check("T" in seq and "c" in seq, f"pipes_isolation (b): placement {seq}")
+    n_gpu = st["finished_tpu_maps"]
+    check(pipes.get("GPU_LAUNCHES", 0) == n_gpu >= 1
+          and pipes.get("ARGV1_0", 0) == n_gpu
+          and not [k for k in pipes if k.startswith("ARGV1_")
+                   and k != "ARGV1_0"]
+          and pipes.get("CPU_MAPS", 0) == st["finished_cpu_maps"],
+          f"pipes_isolation (b): counters {pipes} for {n_gpu} GPU maps")
+    check(row["parent_launches"] == {"kmeans_assign_partials": 0,
+                                     "kmeans_assign": 0},
+          f"pipes_isolation (b): this process launched {launch_counts(km)}")
+    retried = [r["task_id"] for r in reports + reduces
+               if not r["successful_attempt"].endswith("_0")]
+    check(not retried and row["TPU_DEMOTIONS"] == 0,
+          f"pipes_isolation (b): retried {retried}, "
+          f"{row['TPU_DEMOTIONS']} demotions")
+    row["gpu_launches"] = n_gpu
+    return row
+
+
+def driver_files(pid: int) -> "list[str]":
+    """The ``/dev/nvidia*`` files process ``pid`` holds open: none after
+    ``import torch``, some after its first torch.cuda call, which
+    initialises the driver (:class:`DriverControls` holds both in every
+    run)."""
+    out = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.append(target)
+    except OSError:
+        pass
+    return sorted(set(out))
+
+
+class DriverControls:
+    """The two controls of :func:`driver_files`, processes started at once
+    beside the caller's work: one that imports torch, whose driver files
+    must be none (an isolated CPU child imports torch too), and one that
+    then calls torch.cuda.is_available(), whose must not be."""
+
+    CODE = {"import_torch": "import torch",
+            "torch_cuda_call": "import torch; torch.cuda.is_available()"}
+
+    def __init__(self) -> None:
+        self.procs = {
+            label: subprocess.Popen(
+                [sys.executable, "-c", code + "\nimport sys, time\n"
+                 "print('ready', flush=True)\nsys.stdin.read()"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            for label, code in self.CODE.items()}
+
+    def read(self) -> dict:
+        out = {}
+        try:
+            for label, proc in self.procs.items():
+                check(proc.stdout.readline().strip() == "ready",
+                      f"pipes_isolation (c): control {label} exited "
+                      f"{proc.poll()}")
+                out[label] = driver_files(proc.pid)
+        finally:
+            for proc in self.procs.values():
+                proc.kill()
+                proc.communicate()
+        return out
+
+
+class ComputeApps:
+    """Samples the node runner's task children every PIPES_SAMPLE_S until
+    stopped: which of them opened the CUDA driver (:func:`driver_files`),
+    and ``nvidia-smi --query-compute-apps=pid``, whose pids need not be
+    this sandbox's."""
+
+    def __init__(self, tracker) -> None:
+        self.tracker = tracker
+        self.apps: set = set()
+        self.children: set = set()
+        #: children holding the CUDA driver's device files open (what
+        #: torch.cuda's first call does; importing torch does not)
+        self.driver_children: set = set()
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="compute-apps")
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            pids = set(self.tracker.metrics()["task_children"].values())
+            self.children |= pids
+            for pid in pids:
+                if driver_files(pid):
+                    self.driver_children.add(pid)
+            out = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=30).stdout
+            self.apps |= {int(p) for p in out.split() if p.isdigit()}
+            self.samples += 1
+            self._stop.wait(PIPES_SAMPLE_S)
+
+    def __enter__(self) -> "ComputeApps":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(60)
+
+
+def isolation_pair(c, work: str, km) -> dict:
+    """pipes_isolation (c): the hybrid K-Means job over the first
+    ACCEL_SPLITS splits (accel_fault's points4.npy), in the runner's
+    threads and then with tpumr.task.isolation=process: the CPU maps and
+    the reduce in children, the GPU map in the runner (>= 1 fused launch).
+    Gates: byte-identical parts, and no child pid among the card's compute
+    apps while the isolated job runs."""
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.mapred.job_client import JobClient
+    controls = DriverControls()
+    rows = {}
+    try:
+        for mode in ("thread", "process"):
+            conf = c.create_job_conf()
+            conf.set_job_name(f"iso-{mode}")
+            conf.set_input_paths(f"file://{work}/points4.npy")
+            conf.set_output_path(f"file://{work}/iso-{mode}")
+            conf.set_input_format(DenseInputFormat)
+            conf.set("tpumr.dense.split.rows", HYB_ROWS)
+            conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+            conf.set_map_kernel("kmeans-assign")
+            conf.set("mapred.reducer.class",
+                     "tpumr_torch.ops.kmeans.CentroidReducer")
+            conf.set_num_reduce_tasks(1)
+            conf.set("tpumr.task.isolation", mode)
+            km.clear_centroid_cache()
+            zero_launch_counts(km)
+            client = JobClient(conf)
+            sampler = ComputeApps(c.trackers[0])
+            try:
+                t = time.monotonic()
+                with sampler:
+                    running = client.submit_job(conf)
+                    st = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+                secs = time.monotonic() - t
+                reports = running.task_reports("map")
+            finally:
+                client.close()
+            check(st["state"] == "SUCCEEDED", f"pipes_isolation (c) {mode}: "
+                  f"{st['state']} {st.get('error', '')}")
+            with open(os.path.join(work, f"iso-{mode}", "part-00000"),
+                      "rb") as f:
+                part = f.read()
+            rows[mode] = {
+                "job_s": secs,
+                "gpu_maps": sorted(r["task_id"].rsplit("_", 1)[1]
+                                   for r in reports if r["run_on_tpu"]),
+                "placement": "".join(
+                    "T" if r["run_on_tpu"] else "c" for r in sorted(
+                        reports, key=lambda r: r["start_time"])),
+                "launches": launch_counts(km),
+                "finished_tpu_maps": st["finished_tpu_maps"],
+                "children": sorted(sampler.children),
+                "children_on_card": sorted(sampler.children & sampler.apps),
+                "children_with_driver": sorted(sampler.driver_children),
+                "compute_apps": sorted(sampler.apps),
+                "self_on_card": os.getpid() in sampler.apps,
+                "self_driver_files": driver_files(os.getpid()),
+                "map_s": sorted(r["finish_time"] - r["start_time"]
+                                for r in reports),
+                "samples": sampler.samples, "part": part}
+    finally:
+        ctl = controls.read()
+    thread, proc = rows["thread"], rows["process"]
+    identical = thread["part"] == proc["part"]
+    for row in rows.values():
+        row["part_bytes"] = len(row.pop("part"))
+    out = {"thread": thread, "process": proc, "identical": identical,
+           "controls": ctl}
+    log("isolation_pair " + json.dumps(out))
+    check(identical, "pipes_isolation (c): the isolated job's part differs "
+          "from the threaded job's")
+    check(thread["gpu_maps"] == proc["gpu_maps"] and thread["children"] == [],
+          f"pipes_isolation (c): GPU maps {thread['gpu_maps']} and "
+          f"{proc['gpu_maps']}, threaded children {thread['children']}")
+    n_cpu = ACCEL_SPLITS - proc["finished_tpu_maps"]
+    check(n_cpu >= 1 and len(proc["children"]) >= n_cpu,
+          f"pipes_isolation (c): {len(proc['children'])} children seen for "
+          f"{n_cpu} CPU maps")
+    check(proc["launches"]["kmeans_assign_partials"]
+          == proc["finished_tpu_maps"] >= 1,
+          f"pipes_isolation (c): {proc['launches']} launches for "
+          f"{proc['finished_tpu_maps']} GPU maps in the runner")
+    check(ctl["import_torch"] == [] and ctl["torch_cuda_call"] != [],
+          f"pipes_isolation (c): the driver-file signal is not calibrated: "
+          f"{ctl}")
+    check(proc["self_driver_files"] != [] and proc["children_on_card"] == []
+          and proc["children_with_driver"] == [], f"pipes_isolation (c): "
+          f"children {proc['children_with_driver']} opened the CUDA driver, "
+          f"{proc['children_on_card']} among the compute apps (this "
+          f"process holds {proc['self_driver_files']})")
+    return out
+
+
+class PipesLater:
+    """pipes_isolation (b) and (c) on the hybrid phase's cluster, which
+    stays up past the hybrid phase so that they run beside the pipeline
+    phase's TeraSort chain (host work, no K-Means launch in this process):
+    :meth:`run`, a Beside's function there, runs them, shuts the cluster
+    down and prints the phase's line; :meth:`close` shuts it down and
+    removes the hybrid work directory (which keeps the points under
+    ``pipes-points.npy``, points4.npy and cents.npy) wherever that did not
+    happen yet."""
+
+    def __init__(self, cluster, work: str) -> None:
+        self.cluster, self.work = cluster, work
+        self.closed = False
+        self._lock = threading.Lock()
+
+    def ready(self, exes: tuple, ref: np.ndarray, km, kill: dict,
+              cpp: dict) -> None:
+        self.exes, self.ref, self.km, self.kill, self.cpp = \
+            exes, ref, km, kill, cpp
+
+    def run(self) -> dict:
+        try:
+            t = time.monotonic()
+            pipes = pipes_kmeans(self.cluster, self.work, self.exes,
+                                 self.ref, self.km)
+            b_s = time.monotonic() - t
+            t = time.monotonic()
+            iso = isolation_pair(self.cluster, self.work, self.km)
+            c_s = time.monotonic() - t
+        finally:
+            self.shutdown()
+        launches = pipes["gpu_launches"] + sum(
+            iso[m]["launches"]["kmeans_assign_partials"]
+            for m in ("thread", "process"))
+        log("pipes_isolation_phase " + json.dumps({
+            "seconds": self.cpp["seconds"] + b_s + c_s,
+            "a_s": self.cpp["seconds"], "a_make_s": self.cpp["make_s"],
+            "a_jobs_s": self.cpp["jobs_s"], "kill_check": self.kill,
+            "b_s": b_s, "c_s": c_s,
+            "c_thread_job_s": iso["thread"]["job_s"],
+            "c_process_job_s": iso["process"]["job_s"],
+            "placement": pipes["placement"],
+            "gpu_child_launches": pipes["gpu_launches"],
+            "isolation_launches": launches - pipes["gpu_launches"],
+            "isolated_children": len(iso["process"]["children"]),
+            "children_with_driver":
+                len(iso["process"]["children_with_driver"]),
+            "children_on_card": len(iso["process"]["children_on_card"]),
+            "free_before_b_gb": pipes["free_before_gb"],
+            "free_after_b_gb": pipes["free_after_gb"]}))
+        return {"b_s": b_s, "c_s": c_s, "launches": launches}
+
+    def shutdown(self) -> None:
+        """Stop the cluster once; its runner's threads must all end."""
+        with self._lock:
+            if self.closed:
+                return
+            self.closed = True
+        c = self.cluster
+        c.shutdown()
+        check(not any(t._hb_thread.is_alive() or t._reaper_thread.is_alive()
+                      or t.metrics()["task_threads"] for t in c.trackers),
+              "the hybrid cluster left threads running")
+
+    def close(self) -> None:
+        try:
+            self.shutdown()
+        finally:
+            shutil.rmtree(self.work, ignore_errors=True)
+
+
 def hybrid_data(work: str, n: int, mm_n: int) -> np.ndarray:
     """bench.py's hybrid data (bench.py:1187-1201), the same draws in the
     same order: default_rng(4) gives the k x d centroids, the n x d points
@@ -1344,8 +2048,13 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
     acceleration factor must exceed 1. Then hybrid-matmul: HYB_MM_N^2 f32 A
     and B, 4 maps, map-only, SequenceFileOutputFormat, f32 products (TF32
     off, cuBLAS on the GPU slot, numpy on the CPU slots), against a float64
-    product. Then accel_fault's steps 2-3 on the same cluster. The points
-    end at ``keep_points``, for the pipeline phase."""
+    product. Then accel_fault's steps 2-3 on the same cluster, with
+    pipes_isolation's held GPU child (:class:`HeldCard`) beside them and
+    its kill check after, while (a) (:func:`pipes_cpp`) runs beside the
+    whole phase. The points end at ``keep_points``, for the pipeline
+    phase. The cluster stays up: the result's ``pipes``
+    (:class:`PipesLater`) runs pipes_isolation (b) and (c) on it later, and
+    its ``close`` shuts it down."""
     from tpumr_torch.io import sequencefile
     from tpumr_torch.mapred import gpu_runner
     from tpumr_torch.mapred.input_formats import DenseInputFormat
@@ -1356,6 +2065,10 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
 
     t_phase = time.monotonic()
     work = tempfile.mkdtemp(prefix="tpumr_torch-hybrid-")
+    later = None
+    # pipes_isolation (a), processes of their own and no card work, beside
+    # the hybrid jobs
+    cpp = Beside(pipes_cpp, work)
     try:
         t = time.monotonic()
         cents = hybrid_data(work, n, HYB_MM_N)
@@ -1370,47 +2083,55 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
         base.set("tpumr.tpu.device.probe.interval.ms", ACCEL_PROBE_MS)
         base.set("tpumr.tpu.device.quarantine.failures", ACCEL_DEVICE_FAULTS)
         runs = []
-        with MiniMRCluster(num_trackers=1, cpu_slots=3, tpu_slots=1,
-                           conf=base) as c:
-            conf = c.create_job_conf()
-            conf.set_job_name("hybrid-kmeans")
-            conf.set_input_paths(f"file://{work}/points.npy")
-            conf.set_output_path(f"file://{work}/out-km")
-            conf.set_input_format(DenseInputFormat)
-            conf.set("tpumr.dense.split.rows", HYB_ROWS)
-            conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
-            conf.set_map_kernel("kmeans-assign")
-            conf.set("mapred.reducer.class",
-                     "tpumr_torch.ops.kmeans.CentroidReducer")
-            conf.set_num_reduce_tasks(1)
-            for tag, out in (("kmeans_round1", "out-km"),
-                             ("kmeans_round2", "out-km-r2"),
-                             ("kmeans_minimize", "out-km-r3")):
-                if tag == "kmeans_minimize":
-                    conf.set("tpumr.scheduler.mode", "minimize")
-                conf.set_output_path(f"file://{work}/{out}")
-                row = hybrid_run(conf, tag, km)
-                row["out"] = out
-                runs.append(row)
+        c = MiniMRCluster(num_trackers=1, cpu_slots=3, tpu_slots=1,
+                          conf=base)
+        later = PipesLater(c, work)
+        conf = c.create_job_conf()
+        conf.set_job_name("hybrid-kmeans")
+        conf.set_input_paths(f"file://{work}/points.npy")
+        conf.set_output_path(f"file://{work}/out-km")
+        conf.set_input_format(DenseInputFormat)
+        conf.set("tpumr.dense.split.rows", HYB_ROWS)
+        conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+        conf.set_map_kernel("kmeans-assign")
+        conf.set("mapred.reducer.class",
+                 "tpumr_torch.ops.kmeans.CentroidReducer")
+        conf.set_num_reduce_tasks(1)
+        for tag, out in (("kmeans_round1", "out-km"),
+                         ("kmeans_round2", "out-km-r2"),
+                         ("kmeans_minimize", "out-km-r3")):
+            if tag == "kmeans_minimize":
+                conf.set("tpumr.scheduler.mode", "minimize")
+            conf.set_output_path(f"file://{work}/{out}")
+            row = hybrid_run(conf, tag, km)
+            row["out"] = out
+            runs.append(row)
 
-            conf = c.create_job_conf()
-            conf.set_job_name("hybrid-matmul")
-            conf.set_input_paths(f"file://{work}/a.npy")
-            conf.set_output_path(f"file://{work}/out-mm")
-            conf.set_input_format(DenseInputFormat)
-            conf.set("tpumr.dense.split.rows", HYB_MM_N // 4)
-            conf.set("tpumr.matmul.b", f"file://{work}/b.npy")
-            conf.set("tpumr.matmul.bf16", False)
-            conf.set_map_kernel("matmul-block")
-            conf.set_output_format(SequenceFileOutputFormat)
-            conf.set_num_reduce_tasks(0)
-            mm = hybrid_run(conf, "matmul", km)
-            clean = check_no_faults(c.master, "hybrid")
+        conf = c.create_job_conf()
+        conf.set_job_name("hybrid-matmul")
+        conf.set_input_paths(f"file://{work}/a.npy")
+        conf.set_output_path(f"file://{work}/out-mm")
+        conf.set_input_format(DenseInputFormat)
+        conf.set("tpumr.dense.split.rows", HYB_MM_N // 4)
+        conf.set("tpumr.matmul.b", f"file://{work}/b.npy")
+        conf.set("tpumr.matmul.bf16", False)
+        conf.set_map_kernel("matmul-block")
+        conf.set_output_format(SequenceFileOutputFormat)
+        conf.set_num_reduce_tasks(0)
+        mm = hybrid_run(conf, "matmul", km)
+        clean = check_no_faults(c.master, "hybrid")
+        # pipes_isolation: the holding GPU child starts beside the
+        # accel_fault steps; (b) and (c) on the same cluster after them
+        exes = write_pipes_exes(work)
+        held = HeldCard(exes[1])
+        try:
             accel = accel_fault_cluster(c, work, n, cents, km)
-        check(not [th.name for th in threading.enumerate()
-                   if th.name.startswith(("heartbeat-", "task-",
-                                          "rpc-server", "jobmaster-"))],
-              "the cluster left threads running")
+            t = time.monotonic()
+            kill = held.kill_check()
+            kill["added_s"] = time.monotonic() - t
+        finally:
+            held.close()
+        ref = oracle(work, n, cents, km, compare=False)["centroids"]
 
         for row in runs:
             tag = row["run"]
@@ -1427,7 +2148,6 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
             check(row["CPU_BATCH_MAP_TASKS"] == row["CPU_MAP_TASKS"],
                   f"hybrid {tag}: {row['CPU_BATCH_MAP_TASKS']} of "
                   f"{row['CPU_MAP_TASKS']} CPU maps on the batch runner")
-        ref = oracle(work, n, cents, km, compare=False)["centroids"]
         for row in runs:
             got = read_centroids(os.path.join(work, row["out"],
                                               "part-00000"))
@@ -1469,19 +2189,31 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
         log("hybrid_matmul " + json.dumps(mm))
         check(ratio <= MM_ERR, f"hybrid matmul: |C - C64| reaches "
               f"{ratio:.3g} of the f32 error scale, over {MM_ERR}")
+        later.ready(exes, ref, km, kill, cpp.join())
         secs = time.monotonic() - t_phase
         log("hybrid_phase " + json.dumps({
             "seconds": secs, "accel_fault_s": accel["seconds"],
-            "clean_jobs": clean["jobs"]}))
+            "pipes_kill_added_s": kill["added_s"], "clean_jobs":
+            clean["jobs"]}))
         return {"runs": runs, "matmul": mm, "seconds": secs, "accel": accel,
                 "launches": sum(r["launches"]["kmeans_assign_partials"]
                                 for r in runs)
-                + accel["quarantine"]["launches"]["kmeans_assign_partials"]}
+                + accel["quarantine"]["launches"]["kmeans_assign_partials"],
+                "pipes": later}
+    except BaseException:
+        if later is not None:
+            later.close()
+        raise
     finally:
+        cpp.join()
         gpu_runner.clear_split_caches()
         if os.path.exists(os.path.join(work, "points.npy")):
+            # the pipes job keeps the points under a name of its own
+            os.link(os.path.join(work, "points.npy"),
+                    os.path.join(work, "pipes-points.npy"))
             os.replace(os.path.join(work, "points.npy"), keep_points)
-        shutil.rmtree(work, ignore_errors=True)
+        if later is None or later.closed:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def pipe_round_conf(work: str, prefix: str) -> dict:
@@ -1923,11 +2655,13 @@ def pipeline_terasort(work: str, rows: int) -> dict:
     return row
 
 
-def pipeline_phase(km, n: int, tera_rows: int, points: str) -> dict:
+def pipeline_phase(km, n: int, tera_rows: int, points: str,
+                   beside_chain=None) -> dict:
     """The pipeline engine on the card: (a) the K-Means loop node on a
     mini cluster with one GPU slot, (b) the command line's daemons, (c)
     TeraSort's chain as one pipeline. The hybrid phase's points, moved in
-    from ``points``."""
+    from ``points``. ``beside_chain``, where given, runs in a Beside of its
+    own beside (c), as (b) does (the hybrid phase's pipes steps)."""
     from tpumr_torch.examples.basic import load_npy_rows
     from tpumr_torch.fs.filesystem import FileSystem
     from tpumr_torch.mapred import gpu_runner
@@ -1955,10 +2689,14 @@ def pipeline_phase(km, n: int, tera_rows: int, points: str) -> dict:
         gpu_runner.clear_split_caches()
         # (b)'s daemons and programs, processes of their own, beside (c)
         beside = Beside(pipeline_cli, work, km)
+        pipes = Beside(beside_chain) if beside_chain is not None else None
         try:
             tera = pipeline_terasort(work, tera_rows)
         finally:
-            cli = beside.join()
+            try:
+                cli = beside.join()
+            finally:
+                pipes_row = pipes.join() if pipes is not None else None
         check(not [th.name for th in threading.enumerate()
                    if th.name.startswith(("heartbeat-", "task-",
                                           "rpc-server", "jobmaster-"))],
@@ -1967,7 +2705,7 @@ def pipeline_phase(km, n: int, tera_rows: int, points: str) -> dict:
         secs = time.monotonic() - t_phase - lost["seconds"]
         log("pipeline_phase " + json.dumps({"seconds": secs}))
         return {"loop": loop, "cli": cli, "terasort": tera,
-                "seconds": secs, "lost_output": lost,
+                "seconds": secs, "lost_output": lost, "pipes": pipes_row,
                 "launches": sum(v["kmeans_assign_partials"]
                                 for v in loop["launches"].values())}
     finally:
@@ -3521,8 +4259,14 @@ def main() -> None:
     try:
         hyb_points = os.path.join(points_dir, "points.npy")
         hybrid = hybrid_phase(km, args.hybrid_points, hyb_points)
-        pipeline = pipeline_phase(km, args.hybrid_points,
-                                  args.pipeline_tera_rows, hyb_points)
+        # pipes_isolation (b) and (c), on the hybrid cluster, beside the
+        # pipeline phase's TeraSort chain
+        try:
+            pipeline = pipeline_phase(km, args.hybrid_points,
+                                      args.pipeline_tera_rows, hyb_points,
+                                      beside_chain=hybrid["pipes"].run)
+        finally:
+            hybrid["pipes"].close()
     finally:
         shutil.rmtree(points_dir, ignore_errors=True)
     job2 = second_job(km)
@@ -3565,7 +4309,8 @@ def main() -> None:
         "replaces": "tpumr/ops/kmeans.py:57",
         "launches": main["launches"]["kmeans_assign_partials"]
         + rounds["launches"]["kmeans_assign_partials"]
-        + hybrid["launches"] + pipeline["launches"] + lost["launches"],
+        + hybrid["launches"] + pipeline["launches"] + lost["launches"]
+        + pipeline["pipes"]["launches"],
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

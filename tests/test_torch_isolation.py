@@ -1,6 +1,6 @@
 """The port stands alone: tpumr_torch and chip_smoke.py import neither JAX
-nor anything of the JAX package (tpumr), and chip_smoke.py refuses to run
-without a card.
+nor anything of the JAX package (tpumr), the pipes child runtime loads
+neither torch nor numpy, and chip_smoke.py refuses to run without a card.
 """
 
 import ast
@@ -45,7 +45,10 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
                  "mapred.job_client", "mapred.mini_cluster",
                  "pipeline.graph", "pipeline.pipeline_in_progress",
                  "pipeline.handoff", "pipeline.client", "cli", "utils.fi",
-                 "io.fdcache"):
+                 "io.fdcache", "mapred.filecache", "mapred.child",
+                 "mapred.process_runner", "pipes", "pipes.protocol",
+                 "pipes.application", "pipes.child", "pipes.runner",
+                 "pipes.submitter"):
         assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 
@@ -70,6 +73,19 @@ def test_no_source_names_jax_or_tpumr_in_an_import():
             bad += [f"{path}:{node.lineno} {n}" for n in names
                     if _forbidden(n)]
     assert bad == []
+
+
+def test_pipes_child_runtime_loads_no_torch_and_no_numpy():
+    """A pipes child imports tpumr_torch.pipes.child, and a CPU child
+    must start in milliseconds and never reach torch.cuda: the runtime
+    loads neither torch nor numpy."""
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, tpumr_torch.pipes.child; "
+         "print(sorted(m for m in ('torch', 'numpy', 'jax') "
+         "if m in sys.modules))"],
+        cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -20,8 +20,10 @@ with its health script's report); ``pipeline submit GRAPH.json [-wait] |
 status ID | -list | -kill ID`` (``:397-479``); ``examples``; ``version``.
 ``job -history``, ``job -diagnose``, ``job trace``, ``job stats`` and
 ``pipeline trace`` wait for the port's job history and tracing: each says
-so and returns 255. The reference's other daemons and tools are not
-ported (``ROADMAP.md``).
+so and returns 255. ``pipes -program CPU_BIN [-tpubin GPU_BIN] -input IN
+-output OUT [-reduces N] [-jobconf k=v,...]`` submits a pipes job
+(``pipes/submitter.main``, ``:1119-1121``). The reference's other daemons
+and tools are not ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ Clients:
                        | -list-active-trackers
   pipeline ...         DAG-of-jobs pipelines: submit GRAPH.json [-wait] |
                        status ID | -list | -kill ID
+  pipes ...            submit a pipes job: -program BIN [-tpubin BIN]
+                       -input IN -output OUT [-reduces N] [-jobconf k=v]
   examples NAME ...    run an example program (examples -h lists them)
   version              print the version
 """
@@ -290,6 +294,11 @@ def cmd_pipeline(conf, argv: "list[str]") -> int:
     return 255
 
 
+def cmd_pipes(conf, argv: "list[str]") -> int:
+    from tpumr_torch.pipes.submitter import main as pipes_main
+    return pipes_main(argv)
+
+
 def cmd_examples(conf, argv: "list[str]") -> int:
     from tpumr_torch.examples import main as ex_main
     return ex_main(argv)
@@ -305,6 +314,7 @@ COMMANDS = {
     "tasktracker": cmd_tasktracker,
     "job": cmd_job,
     "pipeline": cmd_pipeline,
+    "pipes": cmd_pipes,
     "examples": cmd_examples,
     "version": cmd_version,
 }

@@ -12,8 +12,6 @@ from __future__ import annotations
 
 from typing import Any
 
-import torch
-
 #: conf key naming the port's device: "cuda" (the default), "cuda:<i>" or "cpu"
 DEVICE_KEY = "tpumr_torch.device"
 
@@ -22,6 +20,7 @@ def select_device(conf: Any, dev_id: int = -1) -> torch.device:
     """The device a task bound to accelerator slot ``dev_id`` runs on:
     ``cuda:(dev_id % torch.cuda.device_count())`` (``cuda:0`` for
     ``dev_id < 0``), or the CPU when ``conf`` asks for it."""
+    import torch
     requested = conf.get(DEVICE_KEY)
     dev = torch.device(requested or "cuda")
     if dev.type == "cpu":
@@ -45,5 +44,6 @@ def full_f32_products() -> None:
     assignments and the matmul job's products away from the f32
     reference. Idempotent; the port's f32 products call it, so none
     depends on which module was imported first."""
+    import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")

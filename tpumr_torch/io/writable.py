@@ -3,15 +3,16 @@
 Counterpart of ``tpumr/io/writable.py`` (``serialize`` at :86,
 ``deserialize`` at :215, the vint stream helpers at :25-56). The bytes are
 the JAX package's, tag for tag, so the two packages' map outputs,
-partitions, SequenceFiles and byte counters agree.
+partitions, SequenceFiles and byte counters agree. numpy is imported only
+where a value is a numpy scalar or array: the pipes child runtime
+(``pipes/child.py``) frames its messages with the vints here and loads no
+numpy.
 """
 
 from __future__ import annotations
 
 import struct
 from typing import Any, BinaryIO
-
-import numpy as np
 
 _T_NULL = 0
 _T_BYTES = 1
@@ -120,10 +121,35 @@ def _enc(buf: bytearray, obj: Any) -> None:
         buf.append(_T_TEXT)
         vint_into(buf, len(b))
         buf += b
-    elif isinstance(obj, (int, np.integer)):
+    elif isinstance(obj, int):
+        buf.append(_T_INT)
+        vint_into(buf, _zigzag(obj))
+    elif isinstance(obj, float):
+        buf.append(_T_FLOAT)
+        buf += struct.pack(">d", obj)
+    elif isinstance(obj, (list, tuple)):
+        buf.append(_T_LIST)
+        vint_into(buf, len(obj))
+        for item in obj:
+            _enc(buf, item)
+    elif isinstance(obj, dict):
+        buf.append(_T_DICT)
+        vint_into(buf, len(obj))
+        for k, v in obj.items():
+            _enc(buf, k)
+            _enc(buf, v)
+    else:
+        _enc_numpy(buf, obj)
+
+
+def _enc_numpy(buf: bytearray, obj: Any) -> None:
+    """A numpy scalar or array (none is an ``int``, list, tuple or dict, so
+    the order of the checks gives the JAX package's tags)."""
+    import numpy as np
+    if isinstance(obj, np.integer):
         buf.append(_T_INT)
         vint_into(buf, _zigzag(int(obj)))
-    elif isinstance(obj, (float, np.floating)):
+    elif isinstance(obj, np.floating):
         buf.append(_T_FLOAT)
         buf += struct.pack(">d", float(obj))
     elif isinstance(obj, np.ndarray):
@@ -137,17 +163,6 @@ def _enc(buf: bytearray, obj: Any) -> None:
         raw = np.ascontiguousarray(obj).tobytes()
         vint_into(buf, len(raw))
         buf += raw
-    elif isinstance(obj, (list, tuple)):
-        buf.append(_T_LIST)
-        vint_into(buf, len(obj))
-        for item in obj:
-            _enc(buf, item)
-    elif isinstance(obj, dict):
-        buf.append(_T_DICT)
-        vint_into(buf, len(obj))
-        for k, v in obj.items():
-            _enc(buf, k)
-            _enc(buf, v)
     else:
         raise TypeError(f"unserializable type {type(obj)!r}")
 
@@ -186,6 +201,7 @@ def _read_at(d: bytes, pos: int) -> "tuple[Any, int]":
     if tag == _T_FLOAT:
         return struct.unpack_from(">d", d, pos)[0], pos + 8
     if tag == _T_NDARRAY:
+        import numpy as np
         n, pos = vint_at(d, pos)
         dt = np.dtype(bytes(d[pos:pos + n]).decode())
         pos += n

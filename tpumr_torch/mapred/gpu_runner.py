@@ -349,11 +349,18 @@ def prelaunch_device_maps(conf: Any, tasks: "list[Any]"
     fetch, so the window closes once it has copied
     ``tpumr.tpu.pipeline.window.mb`` (always taking at least one task).
     Split-cache hits copy nothing and do not count. Returns None where the
-    window cannot take the job, whose maps then run one by one: a kernel
-    without the launch protocol (``wordcount``, ``grep``), an input format
-    without ``read_batch`` (``pi``'s ``NLineInputFormat``), a task without
-    a split, or tasks on more than one device."""
+    window cannot take the job, whose maps then run one by one, each
+    through its runner: no kernel mapper (a pipes job), an accelerator
+    runner other than :class:`GpuMapRunner`'s ``run`` (it would not read
+    the prefetch), a kernel without the launch protocol (``wordcount``,
+    ``grep``), an input format without ``read_batch`` (``pi``'s
+    ``NLineInputFormat``), a task without a split, or tasks on more than
+    one device."""
     from tpumr_torch.ops.registry import fetch_to_host
+    if not conf.get_map_kernel():
+        return None
+    if conf.get_tpu_map_runner_class().run is not GpuMapRunner.run:
+        return None
     kernel = job_kernel(conf)
     if not type(kernel).supports_launch():
         return None

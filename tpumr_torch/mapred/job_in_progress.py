@@ -279,9 +279,12 @@ class JobInProgress:
         return len(self._pending_reduces)
 
     def has_kernel(self) -> bool:
-        """The gate of the scheduler's accelerator pass: only a job naming
-        a kernel mapper (``tpumr.map.kernel``) gets accelerator slots."""
-        return bool(self.conf.get("tpumr.map.kernel"))
+        """The gate of the scheduler's accelerator pass (the reference's
+        ``hadoop.pipes.gpu.executable`` gate): only a job naming a kernel
+        mapper (``tpumr.map.kernel``) or a pipes GPU executable
+        (``tpumr.pipes.tpu.executable``) gets accelerator slots."""
+        return bool(self.conf.get("tpumr.map.kernel")
+                    or self.conf.get("tpumr.pipes.tpu.executable"))
 
     def tpu_eligible(self) -> bool:
         """May the accelerator pass offer this job work? The kernel gate

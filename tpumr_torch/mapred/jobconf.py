@@ -65,10 +65,23 @@ class JobConf(Configuration):
     def get_combiner_class(self) -> "type | None":
         return self.get_class("mapred.combiner.class")
 
+    def set_map_runner_class(self, cls: type) -> None:
+        self.set_class("mapred.map.runner.class", cls)
+
     def get_map_runner_class(self) -> type:
         """The per-record runner of a CPU map task."""
         from tpumr_torch.mapred.api import MapRunner
         return self.get_class("mapred.map.runner.class", MapRunner)
+
+    def set_tpu_map_runner_class(self, cls: type) -> None:
+        """The runner of an accelerator-slot map task
+        (``mapred.map.runner.tpu.class``, the JAX package's key; the
+        reference's ``JobConf.setGPUMapRunnerClass``)."""
+        self.set_class("mapred.map.runner.tpu.class", cls)
+
+    def get_tpu_map_runner_class(self) -> type:
+        from tpumr_torch.mapred.gpu_runner import GpuMapRunner
+        return self.get_class("mapred.map.runner.tpu.class", GpuMapRunner)
 
     def set_reducer_class(self, cls: type) -> None:
         self.set_class("mapred.reducer.class", cls)
@@ -131,6 +144,12 @@ class JobConf(Configuration):
         self.set("tpumr.shuffle.device", True)
         self.set("tpumr.shuffle.device.key.bytes", key_bytes)
         self.set("tpumr.shuffle.device.value.bytes", value_bytes)
+
+    @property
+    def device_shuffle(self) -> bool:
+        """Whether the job's map output is sorted on the device (read here,
+        so a CPU task checks it without loading the device sort)."""
+        return self.get_boolean("tpumr.shuffle.device", False)
 
     # ------------------------------------------------------------ sort/spill
 

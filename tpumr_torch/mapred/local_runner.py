@@ -173,10 +173,12 @@ class LocalJobRunner:
 
 
 def maps_on_device(conf: JobConf, device: torch.device) -> bool:
-    """Whether a job's map tasks take the device path: a kernel mapper is
-    named, and the job runs on ``cuda`` or asks for the device path on the
-    CPU with ``tpumr.local.run.on.tpu``."""
-    return conf.get_map_kernel() is not None and (
+    """Whether a job's map tasks take the device path: a kernel mapper or a
+    pipes GPU executable (``tpumr.pipes.tpu.executable``) is named, and the
+    job runs on ``cuda`` or asks for the device path on the CPU with
+    ``tpumr.local.run.on.tpu``."""
+    return (conf.get_map_kernel() is not None
+            or bool(conf.get("tpumr.pipes.tpu.executable"))) and (
         device.type == "cuda" or
         conf.get_boolean("tpumr.local.run.on.tpu", False))
 

@@ -7,7 +7,9 @@ Counterpart of ``tpumr/mapred/map_task.py``. Every attempt runs on its own
 copy of the job conf carrying its identity (:func:`localize_task_conf`),
 with ``tpumr.task.work.dir`` set to its committer work dir (``:271, 297``).
 The runner is chosen as the JAX package chooses it (``:248-265``,
-``:438-451``): the device runner for an accelerator task; on a CPU slot
+``:438-451``): for an accelerator task the job's
+``mapred.map.runner.tpu.class`` (``GpuMapRunner`` unless a job names
+another, as a pipes job names ``PipesGPUMapRunner``); on a CPU slot
 the batch runner when the job names a kernel with a host twin
 (``map_batch_cpu``) and ``tpumr.cpu.batch.map`` is not false, else the
 job's per-record runner over the split's counted reader
@@ -50,8 +52,6 @@ from tpumr_torch.io.recordbatch import RecordBatch
 from tpumr_torch.io.writable import serialize
 from tpumr_torch.mapred.api import OutputCollector, Reporter
 from tpumr_torch.mapred.combine import combined_stream
-from tpumr_torch.mapred.device_shuffle import (DenseMapOutputBuffer,
-                                               is_device_shuffle)
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
 from tpumr_torch.mapred.shuffle_copier import spill_region_segment
 from tpumr_torch.mapred.split import DenseSplit, InputSplit
@@ -212,7 +212,6 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
     Returns (output_path, index). A map-only job (``num_reduces == 0``)
     writes through the job's output format into the committer's work dir
     instead and returns ``("", {})``."""
-    from tpumr_torch.mapred.gpu_runner import GpuMapRunner
     reporter = reporter or Reporter()
     task.reporter = reporter
     conf = localize_task_conf(conf, task)
@@ -221,7 +220,7 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
         _hang_silently(reporter)
     t0 = time.monotonic()
     if task.run_on_tpu:
-        runner_cls = GpuMapRunner
+        runner_cls = conf.get_tpu_map_runner_class()
         backend_tasks, backend_ms = (BackendCounter.TPU_MAP_TASKS,
                                      BackendCounter.TPU_MAP_MILLIS)
     else:
@@ -260,7 +259,10 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
             # dir, made only where something writes there
             conf.set("tpumr.task.work.dir", FileOutputCommitter(
                 conf).work_dir(str(task.attempt_id)))
-        if is_device_shuffle(conf):
+        if conf.device_shuffle:
+            # imported here: a CPU task in a process of its own loads no
+            # torch
+            from tpumr_torch.mapred.device_shuffle import DenseMapOutputBuffer
             buffer: Any = DenseMapOutputBuffer(conf, local_dir, reporter)
             if not _identity_dense_fast_path(conf, in_fmt, split, buffer,
                                              reporter):
@@ -307,7 +309,7 @@ def _read_batch_for_fast_path(conf: Any, in_fmt: Any, split: Any
 
 
 def _identity_dense_fast_path(conf: Any, in_fmt: Any, split: Any,
-                              buffer: DenseMapOutputBuffer,
+                              buffer: "DenseMapOutputBuffer",
                               reporter: Reporter) -> bool:
     """A device-shuffled identity map: the split read as one batch goes
     into the dense buffer as two array appends. False (the caller maps
@@ -360,9 +362,10 @@ def _cpu_runner_class(conf: Any) -> type:
     """A CPU slot's runner: the batch runner for a job whose kernel has a
     host twin (``map_batch_cpu``), unless ``tpumr.cpu.batch.map=false``
     opts out; else the job's per-record runner."""
-    from tpumr_torch.mapred.gpu_runner import CpuBatchMapRunner, job_kernel
     if (conf.get_map_kernel()
             and conf.get_boolean("tpumr.cpu.batch.map", True)):
+        from tpumr_torch.mapred.gpu_runner import (CpuBatchMapRunner,
+                                                   job_kernel)
         if job_kernel(conf).map_batch_cpu is not None:
             return CpuBatchMapRunner
     return conf.get_map_runner_class()

@@ -9,11 +9,13 @@ Counterpart of ``tpumr/mapred/node_health.py``, all three parts:
   unhealthy node runner no task. A script that times out is unhealthy; one
   that cannot run, or exits non-zero without an ``ERROR`` line, is not.
 - :class:`TaskMemoryManager` kills a registered child process whose RSS
-  (``/proc/<pid>/status``) exceeds the limit it was registered with (the
-  JAX package's runner passes ``mapred.task.limit.maxrss.mb``). The port
-  runs its tasks as threads and starts no child yet, so no node runner
-  starts the manager or registers a child: that waits for the process
-  isolation that ``ROADMAP.md`` lists.
+  (``/proc/<pid>/status``) exceeds the limit it was registered with,
+  ``mapred.task.limit.maxrss.mb``. The node's one manager,
+  :data:`GLOBAL_MEMORY_MANAGER`, watches the children the node starts: the
+  process-isolated attempts (``mapred/process_runner.py``) and the pipes
+  children (``pipes/application.py``). Its sampling thread starts at the
+  first registration and ends by itself one interval after the last child
+  is unregistered, so a node with no child to watch runs no thread.
 - :class:`TpuDeviceHealth`: ``threshold`` consecutive device-classed
   failures on a card quarantine it, and its node runner advertises one
   accelerator slot fewer until a probe passes again. The probe runs on the
@@ -119,6 +121,9 @@ class TaskMemoryManager:
         self.killed: "list[str]" = []
         self._stop = threading.Event()
         self._thread: "threading.Thread | None" = None
+        #: the last sampler that ended for want of children, which
+        #: :meth:`stop` still joins
+        self._idle_thread: "threading.Thread | None" = None
 
     def register(self, attempt_id: str, pid: int, limit_bytes: int,
                  kill_cb: Callable[[str], None]) -> None:
@@ -127,6 +132,10 @@ class TaskMemoryManager:
         # a limit set in a job's conf is enforced even where the runner's
         # conf never started the sampler
         self.start()
+
+    def watching(self) -> "list[str]":
+        with self._lock:
+            return sorted(self._tasks)
 
     def unregister(self, attempt_id: str) -> None:
         with self._lock:
@@ -164,12 +173,26 @@ class TaskMemoryManager:
         self._stop.set()
         with self._lock:
             thread, self._thread = self._thread, None
-        if thread is not None:
-            thread.join(JOIN_TIMEOUT_S)
+            idle, self._idle_thread = self._idle_thread, None
+        for t in (thread, idle):
+            if t is not None:
+                t.join(JOIN_TIMEOUT_S)
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval_s):
             self.check_once()
+            with self._lock:
+                # nothing left to watch: end; the next register starts a
+                # thread again
+                if not self._tasks and \
+                        self._thread is threading.current_thread():
+                    self._thread = None
+                    self._idle_thread = threading.current_thread()
+                    return
+
+
+#: the node's manager: every child a node runner or a pipes task starts
+GLOBAL_MEMORY_MANAGER = TaskMemoryManager()
 
 
 def default_tpu_probe(device_id: int) -> None:

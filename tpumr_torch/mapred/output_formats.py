@@ -18,7 +18,6 @@ import numpy as np
 
 from tpumr_torch.fs.filesystem import FileSystem, Path
 from tpumr_torch.io import sequencefile
-from tpumr_torch.mapred import device_output
 
 TEMP_DIR = "_temporary"
 SUCCESS_MARKER = "_SUCCESS"
@@ -125,6 +124,7 @@ class _DenseNpyWriter:
         data = buf.getvalue()
         with self._fs.create(self._path) as f:
             f.write(data)
+        from tpumr_torch.mapred import device_output
         rows = device_output.claim(
             str(self._conf.get("tpumr.task.attempt.id", "")))
         if (rows is not None and tuple(rows.shape) == arr.shape
@@ -143,6 +143,7 @@ class _DenseNpyWriter:
     def abort(self) -> None:
         """A failed attempt writes no file and publishes nothing."""
         self._blocks.clear()
+        from tpumr_torch.mapred import device_output
         device_output.claim(str(self._conf.get("tpumr.task.attempt.id", "")))
 
 

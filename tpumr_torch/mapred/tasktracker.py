@@ -90,10 +90,30 @@ CUDA raises at construction unless the conf asks for the CPU. It has
 (``n_tpu_devices``), and ``n_tpu_devices`` or 1 on the CPU, where its
 accelerator-slot maps take the kernels' plain torch versions.
 
-Left out (``ROADMAP.md``): process isolation (so the umbilical's
-``umbilical_report_fetch_failure``, the SIGKILL of a reaped child and the
-hook-up of ``node_health.TaskMemoryManager``, which has no child to watch),
-userlogs, profiles, the batched map-output serving (``serve_batch``), the
+Process isolation (``:1542-1557``, ``:1963-2100``): with
+``tpumr.task.isolation=process`` in the job's conf, else the runner's, a
+CPU-slot attempt runs in a child process (:meth:`NodeRunner.
+_isolate_in_process`, ``mapred/process_runner.py``, ``mapred/child.py``).
+Accelerator-slot attempts and a device-shuffled job's gang reduce always
+stay in the runner, which holds the CUDA context and the split cache; so do
+the attempts of a pipeline stage that streams its handoff or reads one,
+whose handoff objects live in the runner. The child reports over the
+umbilical, the runner's RPC methods ``umbilical_ping``, ``_status``,
+``_can_commit`` (proxied to the master), ``_events`` (the master's
+completion feed, for an isolated reduce's map locator), ``_done`` (which
+registers a map's output for serving), ``_fail`` and
+``_report_fetch_failure``. An attempt's kill flag, a kill action's or the
+reaper's, SIGKILLs its child's process group; the reaper's signature of an
+isolated attempt is its pushed phase, progress, counters and ticks. The
+node's ``node_health.GLOBAL_MEMORY_MANAGER`` kills a child above
+``mapred.task.limit.maxrss.mb``. The umbilical is unauthenticated, as is
+all of the port's RPC. A job's file cache (a pipes job's executables,
+``mapred/filecache.py``) is localised under ``<local root>/cache``
+(``tpumr.cache.dir``) and released when the job is cleaned up.
+
+Left out (``ROADMAP.md``): the serving and purging of userlogs (a child's
+log is kept under ``userlogs/<job>/<attempt>/child.log``, no more),
+profiles, the batched map-output serving (``serve_batch``), the
 restart rebinding of ``_map_output_entry``, the locator's pooled
 connections (``RpcClientPool``: here each fetching thread keeps one
 ``RpcClient`` per address, and the locator closes them all), the
@@ -117,9 +137,9 @@ from tpumr_torch.io import ifile
 from tpumr_torch.io.compress import wire_compress
 from tpumr_torch.io.fdcache import FdCache
 from tpumr_torch.ipc.rpc import RpcClient, RpcServer
-from tpumr_torch.mapred import device_shuffle
+from tpumr_torch.mapred import filecache
 from tpumr_torch.mapred.api import Reporter, TaskKilledError
-from tpumr_torch.mapred.ids import TaskAttemptID
+from tpumr_torch.mapred.ids import TaskAttemptID, TaskID
 from tpumr_torch.mapred.jobconf import JobConf
 from tpumr_torch.mapred.jobtracker import PROTOCOL_VERSION
 from tpumr_torch.mapred.map_task import run_map_task
@@ -127,6 +147,7 @@ from tpumr_torch.mapred.node_health import (NodeHealthChecker,
                                             TpuDeviceHealth, cpu_probe,
                                             default_tpu_probe)
 from tpumr_torch.mapred.output_formats import FileOutputCommitter
+from tpumr_torch.mapred.process_runner import run_task_in_process
 from tpumr_torch.mapred.reduce_task import run_reduce_task
 from tpumr_torch.mapred.shuffle_copier import RemoteChunkSource
 from tpumr_torch.mapred.task import (FailureClass, Task, TaskPhase,
@@ -422,6 +443,9 @@ class NodeRunner:
         self._last_progress: "dict[str, float]" = {}
         self._progress_sigs: "dict[str, tuple]" = {}
         self._live_reporters: "dict[str, Reporter]" = {}
+        #: an isolated attempt's last pushed ticks, and its child's pid
+        self._umb_ticks: "dict[str, int]" = {}
+        self._children: "dict[str, int]" = {}
         self.tasks_reaped_timeout = 0
         self.tpu_device_quarantines = 0
         #: set when a job's conf arrives (its timeout may be the smallest)
@@ -582,6 +606,7 @@ class NodeRunner:
                     self.running_tasks.pop(aid, None)
                     self._last_progress.pop(aid, None)
                     self._progress_sigs.pop(aid, None)
+                    self._umb_ticks.pop(aid, None)
                     # a reaped attempt's thread may still run: its kill
                     # flag stays until the thread ends (_run_task)
                     if aid not in self._live_reporters:
@@ -629,7 +654,10 @@ class NodeRunner:
             with self.lock:
                 for key in [k for k in self.map_outputs if k[0] == job_id]:
                     del self.map_outputs[key]
-                self.job_confs.pop(job_id, None)
+                jc = self.job_confs.pop(job_id, None)
+            if jc is not None:
+                filecache.release_job(jc, os.path.join(self.local_root,
+                                                       "cache"), job_id)
             d = os.path.join(self.local_root, job_id)
             self._spill_fds.invalidate(d + os.sep)
             shutil.rmtree(d, ignore_errors=True)
@@ -644,6 +672,8 @@ class NodeRunner:
             for k, v in self.master.call("get_job_conf", job_id).items():
                 jc.set(k, v)
             jc.set(DEVICE_KEY, self.device_key)   # the node's device
+            jc.set("tpumr.job.id", job_id)
+            jc.set("tpumr.cache.dir", os.path.join(self.local_root, "cache"))
             # a reduce's merge runs, inside the job's scratch tree so that
             # the job's cleanup removes any left behind
             jc.set("tpumr.task.local.dir",
@@ -724,6 +754,9 @@ class NodeRunner:
         aid = str(task.attempt_id)
         try:
             conf = self._job_conf(job_id)
+            if self._isolate_in_process(conf, task):
+                run_task_in_process(self, job_id, task, status, conf)
+                return
             local_dir = os.path.join(self.local_root, job_id, aid)
             handoff = None
             if task.is_map:
@@ -741,6 +774,7 @@ class NodeRunner:
             else:
                 locator = self._map_locator(job_id, aid, reporter)
                 try:
+                    from tpumr_torch.mapred import device_shuffle
                     if device_shuffle.is_device_shuffle(conf):
                         # the gang task: every map's dense output, sorted
                         # on this runner's device
@@ -796,6 +830,31 @@ class NodeRunner:
                 status.failure_class = classify_exception(e)
                 status.state = TaskState.FAILED
             self._note_device_result(task, status.failure_class)
+
+    def _isolate_in_process(self, conf: JobConf, task: Task) -> bool:
+        """Whether the attempt runs in a child process:
+        ``tpumr.task.isolation=process`` in the job's conf, else the
+        runner's. Never an accelerator-slot attempt or a device-shuffled
+        job's gang reduce (the CUDA context and the split cache are the
+        runner's), nor a pipeline stage that tees its output for a stream
+        handoff or reads one (the handoff's writer and source are objects
+        of the runner)."""
+        mode = conf.get("tpumr.task.isolation",
+                        self.conf.get("tpumr.task.isolation", "thread"))
+        if mode != "process" or task.run_on_tpu:
+            return False
+        if conf.get_boolean("tpumr.pipeline.stream.handoff", False) or \
+                conf.get("tpumr.pipeline.handoff.upstream"):
+            return False
+        return task.is_map or not conf.device_shuffle
+
+    def _note_child(self, attempt_id: str, pid: "int | None") -> None:
+        """An isolated attempt's child started (its pid) or ended (None)."""
+        with self.lock:
+            if pid is None:
+                self._children.pop(attempt_id, None)
+            else:
+                self._children[attempt_id] = pid
 
     def _note_device_result(self, task: Task,
                             failure_class: "str | None") -> None:
@@ -882,11 +941,12 @@ class NodeRunner:
 
     @staticmethod
     def _remote_dense_fetch_factory(job_id: str, locator: MapLocator
-                                    ) -> device_shuffle.DenseFetchFn:
+                                    ) -> "device_shuffle.DenseFetchFn":
         """The gang reduce's fetch: each map's whole dense output. A fetch
         that fails fails the attempt (no report, as in the JAX package)."""
 
         def fetch(map_index: int):
+            from tpumr_torch.mapred import device_shuffle
             out = locator(map_index).call("get_map_output_dense", job_id,
                                           map_index)
             return device_shuffle.parse_dense_bytes(out["data"])
@@ -915,12 +975,17 @@ class NodeRunner:
         """What changes while an attempt makes progress: its phase and
         progress, and its reporter's status line, counter total and
         ticks."""
+        with self.lock:
+            umb_ticks = self._umb_ticks.get(str(st.attempt_id), 0)
+        pushed = sum(v for names in (st.counters or {}).values()
+                     for v in names.values())
         if reporter is None:
-            return (st.phase, round(st.progress, 6), "", 0, 0)
+            return (st.phase, round(st.progress, 6), "", 0, 0, pushed,
+                    umb_ticks)
         total = sum(v for names in reporter.counters.to_dict().values()
                     for v in names.values())
         return (st.phase, round(st.progress, 6), reporter.status, total,
-                reporter.ticks)
+                reporter.ticks, pushed, umb_ticks)
 
     def _task_timeout_s(self, aid: str) -> float:
         """The attempt's ``mapred.task.timeout``: its job's conf over the
@@ -986,9 +1051,11 @@ class NodeRunner:
         return reaped
 
     def _reap_one(self, aid: str, silent_s: float, timeout_s: float) -> bool:
-        """Fail one silent attempt, class ``timeout``, and set its kill flag
-        (the thread ends at its next poll; one that cannot poll keeps
-        running, and the settle guards ignore what it does)."""
+        """Fail one silent attempt, class ``timeout``, and set its kill flag:
+        an isolated attempt's child is SIGKILLed with its process group at
+        once (``process_runner``); a thread ends at its next poll, and one
+        that cannot poll keeps running while the settle guards ignore what
+        it does."""
         with self.lock:
             st = self.running.get(aid)
             if st is None or st.state in TaskState.TERMINAL:
@@ -1017,7 +1084,102 @@ class NodeRunner:
                     "tpu_devices_quarantined": len(self._quarantined()),
                     "tpu_device_restores": (dh.restore_events
                                             if dh is not None else 0),
-                    "task_threads": threads}
+                    "task_threads": threads,
+                    "task_children": dict(self._children)}
+
+    # ------------------------------------------------------------ umbilical
+    # an isolated attempt's child talks to its runner only; the runner
+    # proxies the commit grant and the completion feed (the reference's
+    # TaskUmbilicalProtocol)
+
+    def umbilical_ping(self, attempt_id: str) -> bool:
+        """The child's kill poll: True when the runner wants it gone."""
+        return self._killed(attempt_id)
+
+    def umbilical_status(self, attempt_id: str, d: dict) -> bool:
+        """The child's periodic push. The reaper reads the fields set
+        here; a push whose payload never changes is no progress."""
+        with self.lock:
+            st = self.running.get(attempt_id)
+            if st is None or st.state in TaskState.TERMINAL:
+                return False
+            st.phase = d.get("phase", st.phase)
+            st.progress = max(st.progress, float(d.get("progress", 0.0)))
+            if d.get("counters"):
+                st.counters = d["counters"]
+            if "ticks" in d:
+                self._umb_ticks[attempt_id] = int(d["ticks"])
+            return True
+
+    def umbilical_can_commit(self, task_id: str, attempt_id: str) -> bool:
+        """The master's commit grant, for an attempt of that very task (a
+        grant seeded for another task would deny that task's attempts)."""
+        if str(TaskID.parse(task_id)) != str(
+                TaskAttemptID.parse(attempt_id).task):
+            raise PermissionError(
+                f"task {task_id} does not belong to attempt {attempt_id}")
+        return bool(self.master.call("can_commit", task_id, attempt_id))
+
+    def umbilical_events(self, job_id: str, cursor: int) -> list:
+        """The master's map-completion feed, for an isolated reduce."""
+        return self.master.call("get_map_completion_events", job_id, cursor)
+
+    def umbilical_done(self, attempt_id: str, final: dict, job_id: str,
+                       partition: int, out_path: str, index: dict) -> None:
+        """The child's end: settle its status and, for a map that
+        succeeded, serve its output, which must lie under the runner's
+        local root. An attempt already settled (reaped) stays as it is and
+        serves nothing."""
+        attempt = TaskAttemptID.parse(attempt_id)
+        if str(attempt.task.job) != job_id:
+            raise PermissionError(
+                f"attempt {attempt_id} does not belong to job {job_id}")
+        with self.lock:
+            st = self.running.get(attempt_id)
+            if st is None or st.state in TaskState.TERMINAL:
+                return
+            st.counters = final.get("counters", {})
+            st.progress = float(final.get("progress", 1.0))
+            st.phase = final.get("phase", st.phase)
+            st.diagnostics = final.get("diagnostics", "")
+            st.finish_time = time.time()
+            st.state = final.get("state", TaskState.SUCCEEDED)
+            if not out_path or st.state != TaskState.SUCCEEDED:
+                return
+            real = os.path.realpath(out_path)
+            if not real.startswith(os.path.realpath(self.local_root)
+                                   + os.sep):
+                raise PermissionError(f"{out_path} is not under the "
+                                      "runner's local directory")
+            self.map_outputs[(job_id, int(partition))] = (
+                real, dict(index, attempt=attempt_id,
+                           attempt_no=attempt.attempt))
+
+    def umbilical_fail(self, attempt_id: str, state: str, diagnostics: str,
+                       failure_class: str = "") -> None:
+        """The child failed or was killed; ``failure_class`` is the child's
+        classification, which reaches the master as an attempt in a thread
+        would."""
+        with self.lock:
+            st = self.running.get(attempt_id)
+            if st is None or st.state in TaskState.TERMINAL:
+                return
+            st.diagnostics = diagnostics
+            st.finish_time = time.time()
+            st.failure_class = str(failure_class or "")
+            st.state = (state if state in TaskState.TERMINAL
+                        else TaskState.FAILED)
+
+    def umbilical_report_fetch_failure(self, reduce_attempt: str,
+                                       map_attempt: str) -> None:
+        """An isolated reduce could not fetch ``map_attempt``'s output: as
+        :meth:`report_fetch_failure`, for a map of the reduce's own job."""
+        reduce_job = str(TaskAttemptID.parse(reduce_attempt).task.job)
+        if map_attempt and str(
+                TaskAttemptID.parse(map_attempt).task.job) != reduce_job:
+            raise PermissionError(f"map attempt {map_attempt} is not of "
+                                  f"{reduce_attempt}'s job")
+        self.report_fetch_failure(reduce_attempt, map_attempt)
 
     # ------------------------------------------------------------ shuffle
 
