@@ -153,8 +153,29 @@ the runner's threads and with tpumr.task.isolation=process (CPU maps and
 reduce in child processes, the GPU map in the runner): byte-identical
 parts, and no child that opened the CUDA driver (/dev/nvidia* open in
 /proc/PID/fd, as a first torch.cuda call does) or is among nvidia-smi's
-compute apps. It
-prints the last line
+compute apps.
+
+User_api, the user API tiers: (a) right after the main path's warm jobs,
+on its resident points, a tpumr_torch.mapreduce.Job (DenseInputFormat,
+set_map_kernel("kmeans-assign"), a new-API Reducer folding the partials,
+one reduce) as the first ControlledJob of a JobControl run on a thread of
+its own, and a new-API host job depending on it (KeyValueTextInputFormat
+over its part file, mapreduce.lib.InverseMapper, no reduce): the first
+launches kmeans_assign_partials once a split (TPU_MAP_TASKS the splits),
+commits the old-API warm job's part file byte for byte and meets the
+float64 oracle's gate; the second starts after it and writes its lines
+with key and value swapped; the JobControl thread ends. (b) this script
+again with --user-api-host, a process of its own beside the spill phase,
+under the default cuda device: a 32 MiB wordcount through python -m
+tpumr_torch.cli streaming (a Python script mapper emitting
+LongValueSum:<word> 1, -reducer aggregate) against collections.Counter;
+a -io typedbytes identity job (cat as mapper and reducer) over 10,000
+binary records, the records out equal to those in; ChainMapper ->
+ChainReducer with a MultipleOutputs side file committed beside the part
+file of one reduce; the inner join of 10,000 orders and 1,500 users lines
+through contrib.datajoin; and a sqlite-to-sqlite job (DBInputFormat,
+DBOutputFormat) over 10^5 rows, each against an oracle computed there.
+It prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -719,7 +740,8 @@ def main_path(work: str, n: int, km, profile: bool) -> dict:
           f"{err.max():.3g}, max rel {rel:.3g}")
     if profile:
         profile_warm_job(work)
-    return {"jobs": jobs, "launches": main_launches}
+    return {"jobs": jobs, "launches": main_launches, "part": outputs[0],
+            "oracle": ref["centroids"]}
 
 
 def default_route(work: str, n_splits: int, km, want: bytes) -> None:
@@ -4112,6 +4134,469 @@ def terasort_phase(rows: int, work: str, gen_proc: ExampleProcess) -> dict:
         gen_proc.stop()
 
 
+# ------------------------------------------------------------ user_api
+
+#: the user_api phase (b): the streaming wordcount's text (MiB, from a
+#: vocabulary of UA_VOCAB words, default_rng(UA_SEED)), the typed-bytes
+#: identity's records, the chain job's lines, the join's orders and users
+#: lines, the database job's rows and pages; seconds the phase's process
+#: and the JobControl of (a) may take
+UA_SEED, UA_WC_MB, UA_VOCAB = 11, 32, 5000
+UA_TB_RECORDS, UA_CHAIN_LINES = 10_000, 100_000
+UA_ORDERS, UA_USERS, UA_USER_IDS = 10_000, 1_500, 2_000
+UA_DB_ROWS, UA_DB_PAGES = 100_000, 100
+UA_HOST_TIMEOUT_S, UA_JOBCONTROL_TIMEOUT_S = 900, 300
+
+
+def user_api_card(work: str, n: int, km, main: dict) -> dict:
+    """The user_api phase (a), on the main path's resident points: a
+    new-API Job (DenseInputFormat, set_map_kernel("kmeans-assign"), a
+    new-API Reducer folding the partials as ops/kmeans.CentroidReducer
+    does, one reduce) as the first ControlledJob of a JobControl on a
+    thread of its own, and a host job that depends on it
+    (KeyValueTextInputFormat over its part file, mapreduce.lib's
+    InverseMapper, no reduce). The first must launch the fused kernel once
+    a split from the warm split cache and commit the old-API warm job's
+    part file byte for byte; the second must start after it and write its
+    lines with key and value swapped; the JobControl thread must end."""
+    from tpumr_torch.core.counters import BackendCounter
+    from tpumr_torch.mapred import gpu_runner
+    from tpumr_torch.mapred.input_formats import (DenseInputFormat,
+                                                  KeyValueTextInputFormat)
+    from tpumr_torch.mapreduce import Job, Reducer
+    from tpumr_torch.mapreduce.lib import (ControlledJob, InverseMapper,
+                                           JobControl)
+
+    class CentroidFold(Reducer):
+        def reduce(self, key, values, context):
+            total, cnt = None, 0
+            for s, c in values:
+                s = np.asarray(s, dtype=np.float64)
+                total = s if total is None else total + s
+                cnt += int(c)
+            context.write(key, (total / max(1, cnt)).tolist())
+
+    class TimedJob(Job):
+        """A Job that keeps when it ran."""
+
+        def wait_for_completion(self, verbose: bool = False) -> bool:
+            self.started = time.monotonic()
+            try:
+                return super().wait_for_completion(verbose)
+            finally:
+                self.ended = time.monotonic()
+
+    n_splits = -(-n // ROWS_PER_SPLIT)
+    kmeans = TimedJob(name="kmeans-new-api")
+    kmeans.add_input_path(f"file://{work}/points.npy")
+    kmeans.set_output_path(f"file://{work}/out-new-api")
+    kmeans.set_input_format(DenseInputFormat)
+    kmeans.conf.set("tpumr.dense.split.rows", ROWS_PER_SPLIT)
+    kmeans.conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+    kmeans.conf.set("tpumr.tpu.split.cache.mb", 8192)
+    kmeans.set_map_kernel("kmeans-assign")
+    kmeans.set_reducer_class(CentroidFold)
+    kmeans.set_num_reduce_tasks(1)
+    inverse = TimedJob(name="inverse-new-api")
+    inverse.add_input_path(f"file://{work}/out-new-api/part-00000")
+    inverse.set_output_path(f"file://{work}/out-inverse")
+    inverse.set_input_format(KeyValueTextInputFormat)
+    inverse.set_mapper_class(InverseMapper)
+    inverse.set_num_reduce_tasks(0)
+    jc = JobControl("user_api")
+    first = jc.add_job(ControlledJob(kmeans))
+    second = jc.add_job(ControlledJob(inverse, depending=[first]))
+
+    km.clear_centroid_cache()            # as before each warm job
+    cache = gpu_runner.split_cache(torch.device("cuda", 0), 8192 << 20)
+    hits0 = cache.hits
+    zero_launch_counts(km)               # this path's count starts
+    thread = threading.Thread(target=jc.run, name="jobcontrol", daemon=True)
+    t = time.monotonic()
+    thread.start()
+    try:
+        thread.join(UA_JOBCONTROL_TIMEOUT_S)
+    finally:
+        jc.stop()
+        thread.join(60)
+    secs = time.monotonic() - t
+    launches = launch_counts(km)
+    check(not thread.is_alive(), "user_api (a): the JobControl thread did "
+          f"not end within {UA_JOBCONTROL_TIMEOUT_S} s")
+    check(first.state == ControlledJob.SUCCESS, "user_api (a): the new-API "
+          f"kernel job ended {first.state}: {kmeans.error}")
+    check(second.state == ControlledJob.SUCCESS, "user_api (a): the "
+          f"dependent job ended {second.state}: {inverse.error}")
+    check(inverse.started >= kmeans.ended, "user_api (a): the dependent "
+          "job started before the kernel job ended")
+    check(launches == {"kmeans_assign_partials": n_splits,
+                       "kmeans_assign": 0},
+          f"user_api (a): launches {launches} for {n_splits} splits")
+    tpu_maps = kmeans.counters.value(BackendCounter.GROUP,
+                                     BackendCounter.TPU_MAP_TASKS)
+    check(tpu_maps == n_splits, f"user_api (a): TPU_MAP_TASKS {tpu_maps} "
+          f"for {n_splits} splits")
+    with open(os.path.join(work, "out-new-api", "part-00000"), "rb") as f:
+        part = f.read()
+    check(part == main["part"], "user_api (a): the new-API job's part file "
+          "differs from the old-API warm job's")
+    got = read_centroids(os.path.join(work, "out-new-api", "part-00000"))
+    got = np.stack([got[i] for i in range(K)])
+    err = np.abs(got - main["oracle"])
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL *
+                      np.abs(main["oracle"]))),
+          f"user_api (a): centroids off the float64 oracle by {err.max()}")
+    with open(os.path.join(work, "out-inverse", "part-00000"), "rb") as f:
+        swapped = f.read().decode().splitlines()
+    want = [f"{v}\t{k}" for k, _, v in
+            (line.partition("\t") for line in part.decode().splitlines())]
+    check(swapped == want, "user_api (a): the dependent job's lines are "
+          "not the kernel job's with key and value swapped")
+    row = {"seconds": secs, "new_api_job_s": kmeans.ended - kmeans.started,
+           "old_api_warm_job_s": main["jobs"][-1]["seconds"],
+           "dependent_job_s": inverse.ended - inverse.started,
+           "launches": launches, "tpu_map_tasks": tpu_maps,
+           "split_cache_hits": cache.hits - hits0,
+           "bytes_staged": kmeans.counters.value(
+               BackendCounter.GROUP, BackendCounter.TPU_DEVICE_BYTES_STAGED),
+           "max_abs_err": float(err.max())}
+    log("user_api_card " + json.dumps(row))
+    return row
+
+
+class ChainSplit:
+    """The chain job's first mapper: "k<i> <n>" -> ("k<i>", n)."""
+
+    def configure(self, conf) -> None:
+        pass
+
+    def map(self, key, value, output, reporter) -> None:
+        k, n = str(value).split()
+        output.collect(k, int(n))
+
+    def close(self) -> None:
+        pass
+
+
+class ChainRoute(ChainSplit):
+    """The chain's second mapper: multiples of 10 to the side output
+    "tens" (MultipleOutputs), the rest on."""
+
+    def configure(self, conf) -> None:
+        from tpumr_torch.mapred.lib import MultipleOutputs
+        self._mo = MultipleOutputs(conf)
+
+    def map(self, key, value, output, reporter) -> None:
+        if value % 10 == 0:
+            self._mo.collector("tens").collect(key, value)
+        else:
+            output.collect(key, value)
+
+    def close(self) -> None:
+        self._mo.close()
+
+
+class ChainSum(ChainSplit):
+    def reduce(self, key, values, output, reporter) -> None:
+        output.collect(key, sum(values))
+
+
+class ChainUpper(ChainSplit):
+    """The mapper after the chain's reducer: the key in capitals."""
+
+    def map(self, key, value, output, reporter) -> None:
+        output.collect(str(key).upper(), value)
+
+
+class DbPages(ChainSplit):
+    """The database job's mapper: (id, page, n) rows -> (page, n)."""
+
+    def map(self, key, row, output, reporter) -> None:
+        output.collect(row[1], row[2])
+
+
+def _datajoin_classes() -> tuple:
+    """The join's mappers and reducer, made here (their bases load the
+    port) and put under their names in this module, where the job's conf
+    finds them by name."""
+    from tpumr_torch.contrib.datajoin import DataJoinMapper, DataJoinReducer
+
+    class UserApiOrders(DataJoinMapper):
+        def input_tag(self, conf):
+            return "orders"
+
+        def extract_key(self, key, value):
+            return str(value).split(",")[0]
+
+        def extract_value(self, key, value):
+            return str(value).split(",", 1)[1]
+
+    class UserApiUsers(UserApiOrders):
+        def input_tag(self, conf):
+            return "users"
+
+    class UserApiInnerJoin(DataJoinReducer):
+        required_tags = ("orders", "users")
+
+        def combine(self, key, tags, values, output, reporter):
+            by_tag = dict(zip(tags, values))
+            return f"{by_tag['users']}|{by_tag['orders']}"
+
+    classes = (UserApiOrders, UserApiUsers, UserApiInnerJoin)
+    for cls in classes:
+        cls.__qualname__ = cls.__name__
+        globals()[cls.__name__] = cls
+    return classes
+
+
+def _step(name: str, t0: float, **counts) -> dict:
+    row = {"step": name, "seconds": time.monotonic() - t0, **counts}
+    log("user_api_host_step " + json.dumps(row))
+    return row
+
+
+def ua_streaming_wordcount(work: str) -> dict:
+    """UA_WC_MB MiB of text through python -m tpumr_torch.cli streaming,
+    a Python script mapper emitting LongValueSum:<word> 1 and -reducer
+    aggregate, against a collections.Counter of the text."""
+    from collections import Counter
+    rng = np.random.default_rng(UA_SEED)
+    vocab = np.frombuffer(b"".join(f"w{i:04d}".encode()
+                                   for i in range(UA_VOCAB)),
+                          np.uint8).reshape(UA_VOCAB, 5)
+    words = (UA_WC_MB << 20) // 6
+    rows = np.empty((words, 6), np.uint8)
+    rows[:, :5] = vocab[rng.integers(0, UA_VOCAB, words)]
+    rows[:, 5] = ord(" ")
+    rows[11::12, 5] = ord("\n")
+    rows[-1, 5] = ord("\n")
+    text = rows.tobytes()
+    with open(os.path.join(work, "wc.txt"), "wb") as f:
+        f.write(text)
+    mapper = os.path.join(work, "wc_map.py")
+    with open(mapper, "w") as f:
+        f.write("import sys\n"
+                "out = sys.stdout\n"
+                "for line in sys.stdin:\n"
+                "    for w in line.split():\n"
+                "        out.write(f'LongValueSum:{w}\\t1\\n')\n")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpumr_torch.cli", "streaming",
+         "-input", f"file://{work}/wc.txt", "-output", f"file://{work}/wc-out",
+         "-mapper", f"{sys.executable} {mapper}", "-reducer", "aggregate",
+         "-numReduceTasks", "1"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=UA_HOST_TIMEOUT_S)
+    check(proc.returncode == 0, f"user_api (b): streaming exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    got = {}
+    with open(os.path.join(work, "wc-out", "part-00000")) as f:
+        for line in f:
+            k, v = line.rstrip("\n").split("\t")
+            got[k] = int(v)
+    want = Counter(text.decode().split())
+    check(got == dict(want), "user_api (b): the streaming wordcount "
+          "differs from a Counter of the text")
+    return _step("streaming_wordcount", t0, bytes=len(text), words=words,
+                 distinct=len(got))
+
+
+def ua_typedbytes_identity(work: str) -> dict:
+    """UA_TB_RECORDS binary records (NULs, tabs, newlines) in a
+    SequenceFile through -io typedbytes with cat as mapper and reducer:
+    the records out equal the records in, in key order."""
+    from tpumr_torch.cli import main as cli_main
+    from tpumr_torch.io import sequencefile
+    rng = np.random.default_rng(UA_SEED + 1)
+    keys = sorted({rng.bytes(12) for _ in range(UA_TB_RECORDS)})
+    recs = [(k, rng.bytes(int(rng.integers(0, 200))) + b"\n\x00\t")
+            for k in keys]
+    os.makedirs(os.path.join(work, "tb-in"))
+    with open(os.path.join(work, "tb-in", "part-0"), "wb") as f:
+        w = sequencefile.Writer(f)
+        for k, v in recs:
+            w.append(k, v)
+        w.close()
+    t0 = time.monotonic()
+    rc = cli_main([
+        "streaming", "-input", f"file://{work}/tb-in",
+        "-output", f"file://{work}/tb-out", "-mapper", "cat",
+        "-reducer", "cat", "-io", "typedbytes",
+        "-D", "mapred.input.format.class="
+              "tpumr_torch.mapred.input_formats.SequenceFileInputFormat",
+        "-D", "mapred.output.format.class="
+              "tpumr_torch.mapred.output_formats.SequenceFileOutputFormat"])
+    check(rc == 0, f"user_api (b): the typed-bytes job exited {rc}")
+    with open(os.path.join(work, "tb-out", "part-00000"), "rb") as f:
+        out = list(sequencefile.Reader(f))
+    check(out == recs, "user_api (b): the typed-bytes identity changed "
+          "the records")
+    return _step("typedbytes_identity", t0, records=len(out))
+
+
+def ua_chain_multiple_outputs(work: str) -> dict:
+    """ChainMapper (ChainSplit, ChainRoute) -> ChainReducer (ChainSum,
+    then ChainUpper), one reduce, the map's MultipleOutputs side file
+    "tens" committed beside the part file."""
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.lib import ChainMapper, ChainReducer
+    from tpumr_torch.mapred.local_runner import run_job
+    rng = np.random.default_rng(UA_SEED + 2)
+    pairs = rng.integers(0, 1000, size=(UA_CHAIN_LINES, 2))
+    with open(os.path.join(work, "chain.txt"), "w") as f:
+        f.writelines(f"k{a} {b}\n" for a, b in pairs)
+    conf = JobConf()
+    conf.set_input_paths(f"file://{work}/chain.txt")
+    conf.set_output_path(f"file://{work}/chain-out")
+    ChainMapper.add_mapper(conf, ChainSplit)
+    ChainMapper.add_mapper(conf, ChainRoute)
+    ChainReducer.set_reducer(conf, ChainSum)
+    ChainReducer.add_mapper(conf, ChainUpper)
+    conf.set_num_reduce_tasks(1)
+    t0 = time.monotonic()
+    check(run_job(conf).successful, "user_api (b): the chain job failed")
+    sums: dict = {}
+    tens = []
+    for a, b in pairs:
+        if b % 10 == 0:
+            tens.append(f"k{a}\t{b}")
+        else:
+            sums[f"K{a}"] = sums.get(f"K{a}", 0) + int(b)
+    out = os.path.join(work, "chain-out")
+    with open(os.path.join(out, "part-00000")) as f:
+        main = dict(line.rstrip("\n").split("\t") for line in f)
+    check({k: int(v) for k, v in main.items()} == sums,
+          "user_api (b): the chain's sums differ from the oracle's")
+    with open(os.path.join(out, "tens-00000")) as f:
+        side = f.read().splitlines()
+    check(side == tens, "user_api (b): the committed side file differs "
+          "from the oracle's")
+    return _step("chain_multiple_outputs", t0, lines=UA_CHAIN_LINES,
+                 keys=len(main), side_records=len(side))
+
+
+def ua_datajoin(work: str) -> dict:
+    """The inner join of UA_ORDERS orders and UA_USERS users lines through
+    contrib.datajoin, against a Python join."""
+    from tpumr_torch.contrib.datajoin import make_datajoin_conf
+    from tpumr_torch.mapred.local_runner import run_job
+    orders_cls, users_cls, join_cls = _datajoin_classes()
+    rng = np.random.default_rng(UA_SEED + 3)
+    orders = [(f"u{u}", f"o{i}") for i, u in
+              enumerate(rng.integers(0, UA_USER_IDS, UA_ORDERS))]
+    users = [(f"u{u}", f"name{u}") for u in
+             rng.choice(UA_USER_IDS, UA_USERS, replace=False)]
+    for name, rows in (("orders", orders), ("users", users)):
+        os.makedirs(os.path.join(work, name))
+        with open(os.path.join(work, name, "part-0"), "w") as f:
+            f.writelines(f"{a},{b}\n" for a, b in rows)
+    conf = make_datajoin_conf(
+        [("orders", f"file://{work}/orders", orders_cls),
+         ("users", f"file://{work}/users", users_cls)],
+        join_cls, f"file://{work}/join-out")
+    conf.set_num_reduce_tasks(1)
+    t0 = time.monotonic()
+    result = run_job(conf)
+    check(result.successful, "user_api (b): the join failed")
+    names = dict(users)
+    want = sorted(f"{u}\t{names[u]}|{o}" for u, o in orders if u in names)
+    with open(os.path.join(work, "join-out", "part-00000")) as f:
+        got = sorted(f.read().splitlines())
+    check(got == want, "user_api (b): the join differs from the oracle's")
+    return _step("datajoin", t0, orders=UA_ORDERS, users=UA_USERS,
+                 joined=len(got), tuples_joined=result.counters.value(
+                     "tpumr.DataJoin", "TUPLES_JOINED"))
+
+
+def ua_sqlite(work: str) -> dict:
+    """UA_DB_ROWS rows of a sqlite table through DBInputFormat (4 ordered
+    splits), summed a page, INSERTed by DBOutputFormat into another table
+    of the database, against sums taken here."""
+    import sqlite3
+    from tpumr_torch.mapred.jobconf import JobConf
+    from tpumr_torch.mapred.lib_db import DBInputFormat, DBOutputFormat
+    from tpumr_torch.mapred.local_runner import run_job
+    rng = np.random.default_rng(UA_SEED + 4)
+    pages = rng.integers(0, UA_DB_PAGES, UA_DB_ROWS)
+    ns = rng.integers(0, 1000, UA_DB_ROWS)
+    path = os.path.join(work, "store.db")
+    conn = sqlite3.connect(path)
+    conn.execute("CREATE TABLE clicks (id INTEGER, page TEXT, n INTEGER)")
+    conn.executemany("INSERT INTO clicks VALUES (?, ?, ?)",
+                     [(i, f"page{p}", int(v))
+                      for i, (p, v) in enumerate(zip(pages, ns))])
+    conn.execute("CREATE TABLE totals (page TEXT, total INTEGER)")
+    conn.commit()
+    conn.close()
+    conf = JobConf()
+    conf.set("tpumr.db.connect", path)
+    conf.set("tpumr.db.input.table", "clicks")
+    conf.set("tpumr.db.input.order.by", "id")
+    conf.set("tpumr.db.output.table", "totals")
+    conf.set("tpumr.db.output.fields", "page,total")
+    conf.set_input_format(DBInputFormat)
+    conf.set_output_format(DBOutputFormat)
+    conf.set("mapred.map.tasks", 4)
+    conf.set_mapper_class(DbPages)
+    conf.set_reducer_class(ChainSum)
+    conf.set_num_reduce_tasks(1)
+    conf.set_output_path(f"file://{work}/db-scratch")
+    t0 = time.monotonic()
+    result = run_job(conf)
+    check(result.successful, "user_api (b): the database job failed")
+    conn = sqlite3.connect(path)
+    got = dict(conn.execute("SELECT page, total FROM totals"))
+    conn.close()
+    want: dict = {}
+    for p, v in zip(pages, ns):
+        want[f"page{p}"] = want.get(f"page{p}", 0) + int(v)
+    check(got == want, "user_api (b): the database totals differ from the "
+          "oracle's")
+    return _step("sqlite", t0, rows=UA_DB_ROWS, maps=result.num_maps,
+                 totals=len(got))
+
+
+def user_api_host(work: str) -> None:
+    """The user_api phase (b), the main of this script's --user-api-host
+    process: the host tiers under the default cuda device, each step
+    against its oracle, one line a step and one for the whole."""
+    t0 = time.monotonic()
+    steps = [step(work) for step in (ua_streaming_wordcount,
+                                     ua_typedbytes_identity,
+                                     ua_chain_multiple_outputs,
+                                     ua_datajoin, ua_sqlite)]
+    log("user_api_host " + json.dumps({
+        "seconds": time.monotonic() - t0,
+        "steps": {s["step"]: s["seconds"] for s in steps}}))
+
+
+def user_api_host_process() -> dict:
+    """The user_api phase (b) in a process of its own (this script with
+    --user-api-host), its lines passed on; what its last line says."""
+    work = tempfile.mkdtemp(prefix="tpumr_torch-userapi-")
+    try:
+        t = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--user-api-host",
+             work], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=UA_HOST_TIMEOUT_S)
+        secs = time.monotonic() - t
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("user_api_host")]
+        for line in lines:
+            log(line)
+        check(proc.returncode == 0 and lines and
+              lines[-1].startswith("user_api_host {"),
+              f"user_api (b) exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        out = json.loads(lines[-1].split(" ", 1)[1])
+        out["process_s"] = secs
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_warm_job(work: str) -> None:
     """One more warm job under torch.profiler: device time by kernel
     against the job's wall time, written under chiprun_out/."""
@@ -4222,10 +4707,16 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also profile two more warm jobs, device and host "
                          "(chiprun_out/)")
+    ap.add_argument("--user-api-host", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.monotonic()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
+    if args.user_api_host:
+        # the user_api phase's (b), in the process main() starts for it
+        user_api_host(args.user_api_host)
+        return
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -4251,6 +4742,7 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="tpumr_torch-smoke-")
     try:
         main = main_path(work, args.points, km, args.profile)
+        user_api = user_api_card(work, args.points, km, main)
         rounds = rounds_phase(work, args.points, km)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4279,7 +4771,13 @@ def main() -> None:
         gen_proc = teragen_process(tera_work, args.tera_rows)
         try:
             text_phase()
-            spill_phase()
+            # the user_api phase's host tiers, a process of its own, beside
+            # the spill phase's host jobs
+            host_tiers = Beside(user_api_host_process)
+            try:
+                spill_phase()
+            finally:
+                user_api_host_out = host_tiers.join()
         except BaseException:
             gen_proc.stop()
             raise
@@ -4296,6 +4794,11 @@ def main() -> None:
         "demotion_job_s": accel["demotion"]["job_s"],
         "clean_hybrid_job_s": [r["job_s"] for r in hybrid["runs"]],
         "reaper_job_s": reaper["job_s"]}))
+    log("user_api_phase " + json.dumps({
+        "seconds": user_api["seconds"] + user_api_host_out["process_s"],
+        "a_s": user_api["seconds"], "b_s": user_api_host_out["process_s"],
+        "new_api_job_s": user_api["new_api_job_s"],
+        "old_api_warm_job_s": user_api["old_api_warm_job_s"]}))
     lost = pipeline["lost_output"]
     log("cluster_shuffle_phase " + json.dumps({
         "seconds": tera["cluster"]["seconds"]
@@ -4310,7 +4813,8 @@ def main() -> None:
         "launches": main["launches"]["kmeans_assign_partials"]
         + rounds["launches"]["kmeans_assign_partials"]
         + hybrid["launches"] + pipeline["launches"] + lost["launches"]
-        + pipeline["pipes"]["launches"],
+        + pipeline["pipes"]["launches"]
+        + user_api["launches"]["kmeans_assign_partials"],
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

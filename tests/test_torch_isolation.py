@@ -48,7 +48,10 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
                  "io.fdcache", "mapred.filecache", "mapred.child",
                  "mapred.process_runner", "pipes", "pipes.protocol",
                  "pipes.application", "pipes.child", "pipes.runner",
-                 "pipes.submitter"):
+                 "pipes.submitter", "mapred.lib", "mapred.lib_db",
+                 "streaming", "streaming.typedbytes", "streaming.pipe_runner",
+                 "streaming.stream_job", "mapreduce", "mapreduce.lib",
+                 "contrib", "contrib.datajoin"):
         assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 

@@ -22,7 +22,10 @@ status ID | -list | -kill ID`` (``:397-479``); ``examples``; ``version``.
 ``pipeline trace`` wait for the port's job history and tracing: each says
 so and returns 255. ``pipes -program CPU_BIN [-tpubin GPU_BIN] -input IN
 -output OUT [-reduces N] [-jobconf k=v,...]`` submits a pipes job
-(``pipes/submitter.main``, ``:1119-1121``). The reference's other daemons
+(``pipes/submitter.main``, ``:1119-1121``); ``streaming -input IN -output
+OUT [-mapper CMD] [-reducer CMD|aggregate] [-combiner CMD]
+[-numReduceTasks N] [-io text|typedbytes] [-D k=v]`` a streaming job
+(``streaming/stream_job.main``, ``:1124-1126``). The reference's other daemons
 and tools are not ported (``ROADMAP.md``).
 """
 
@@ -52,6 +55,9 @@ Clients:
                        status ID | -list | -kill ID
   pipes ...            submit a pipes job: -program BIN [-tpubin BIN]
                        -input IN -output OUT [-reduces N] [-jobconf k=v]
+  streaming ...        submit a streaming job: -input IN -output OUT
+                       [-mapper CMD] [-reducer CMD|aggregate] [-combiner CMD]
+                       [-numReduceTasks N] [-io text|typedbytes] [-D k=v]
   examples NAME ...    run an example program (examples -h lists them)
   version              print the version
 """
@@ -299,6 +305,11 @@ def cmd_pipes(conf, argv: "list[str]") -> int:
     return pipes_main(argv)
 
 
+def cmd_streaming(conf, argv: "list[str]") -> int:
+    from tpumr_torch.streaming.stream_job import main as stream_main
+    return stream_main(argv)
+
+
 def cmd_examples(conf, argv: "list[str]") -> int:
     from tpumr_torch.examples import main as ex_main
     return ex_main(argv)
@@ -315,6 +326,7 @@ COMMANDS = {
     "job": cmd_job,
     "pipeline": cmd_pipeline,
     "pipes": cmd_pipes,
+    "streaming": cmd_streaming,
     "examples": cmd_examples,
     "version": cmd_version,
 }

@@ -161,6 +161,20 @@ class HashPartitioner(Partitioner):
         return zlib.crc32(serialize(key)) % num_partitions
 
 
+class KeyFieldBasedPartitioner(Partitioner):
+    """crc32 of a text key's first ``num_fields`` fields, modulo the
+    partition count (the JAX package's rule)."""
+
+    def __init__(self, num_fields: int = 1, separator: str = "\t") -> None:
+        self.num_fields = num_fields
+        self.separator = separator
+
+    def get_partition(self, key: Any, value: Any, num_partitions: int) -> int:
+        s = key if isinstance(key, str) else str(key)
+        prefix = self.separator.join(s.split(self.separator)[:self.num_fields])
+        return zlib.crc32(prefix.encode()) % num_partitions
+
+
 class DeserializingComparator:
     """Default sort order: natural Python order of the deserialized key."""
 

@@ -1,10 +1,12 @@
 """Input formats: split planning and record readers, text and dense.
 
 Counterpart of ``tpumr/mapred/input_formats.py``: ``FileInputFormat``,
-``LineRecordReader``, ``TextInputFormat``, ``RawTextInputFormat`` and
+``LineRecordReader``, ``TextInputFormat``, ``RawTextInputFormat``,
+``BytesTextInputFormat``, ``KeyValueTextInputFormat`` and
 ``NLineInputFormat`` (``:42-318``), ``SequenceFileInputFormat``
-(``:319-350``), and ``load_dense``, ``read_npy_header`` and
-``DenseInputFormat`` (``:426-501``). Splits and records are the JAX
+(``:319-350``), ``WholeFileInputFormat``, ``CombineFileInputFormat`` and
+``MultiFileSplit`` (``:350-420``), and ``load_dense``, ``read_npy_header``
+and ``DenseInputFormat`` (``:426-501``). Splits and records are the JAX
 package's, byte for byte: a text split is planned as
 ``max(min, min(goal, block, max))`` bytes with the 1.1 split slop, and owns
 every line that starts at a position up to its end.
@@ -12,6 +14,7 @@ every line that starts at a position up to its end.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from io import BytesIO
 from typing import Any, Iterator
 
@@ -39,7 +42,10 @@ class FileInputFormat:
     """Lists the input files (hidden names skipped) and cuts each into
     splits of ``max(mapred.min.split.size, min(goal, block size,
     mapred.max.split.size))`` bytes, ``goal`` being the total over the map
-    count hint; a tail under 1.1 splits rides with the last split."""
+    count hint; a tail under 1.1 splits rides with the last split. A format
+    that is not ``splittable`` makes one split of each whole file."""
+
+    splittable = True
 
     def list_input_files(self, conf: Any
                          ) -> list[tuple[FileSystem, FileStatus]]:
@@ -71,6 +77,10 @@ class FileInputFormat:
         splits: list[InputSplit] = []
         for fs, st in files:
             if st.length == 0:
+                continue
+            if not self.splittable:
+                splits.append(FileSplit(_hosts(fs, st, 0, st.length),
+                                        str(st.path), 0, st.length))
                 continue
             size = max(min_size, min(goal, st.block_size, max_size))
             pos, remaining = 0, st.length
@@ -200,6 +210,30 @@ class RawTextInputFormat(TextInputFormat):
                            np.array([0, len(buf)], dtype=np.int32))
 
 
+class BytesTextInputFormat(TextInputFormat):
+    """:class:`TextInputFormat` whose values stay raw bytes."""
+
+    keep_bytes = True
+
+
+class KeyValueTextInputFormat(TextInputFormat):
+    """Each line split at the first byte of
+    ``key.value.separator.in.input.line`` (TAB by default, and where the
+    value is empty) into (key, value); a line without it is (line, "").
+    Its values are not the whole lines, so it reads no batches."""
+
+    read_batch = None
+
+    def get_record_reader(self, split: FileSplit, conf: Any,
+                          reporter: Any = None) -> Iterator[tuple[str, str]]:
+        sep = (str(conf.get("key.value.separator.in.input.line", "\t"))
+               or "\t")[:1]
+        for _offset, line in super().get_record_reader(split, conf,
+                                                       reporter):
+            k, _, v = line.partition(sep)
+            yield k, v
+
+
 class NLineInputFormat(FileInputFormat):
     """One split per ``mapred.line.input.format.linespermap`` lines (1 by
     default), each an exact line range. It has no ``read_batch``: its
@@ -264,6 +298,68 @@ class SequenceFileInputFormat(FileInputFormat):
         with FileSystem.get(split.path, conf).open(split.path) as f:
             return sequencefile.Reader(f).read_batch_range(
                 split.start, split.start + split.length)
+
+
+class WholeFileInputFormat(FileInputFormat):
+    """One record a file, (path, its bytes); files are not split."""
+
+    splittable = False
+
+    def get_record_reader(self, split: FileSplit, conf: Any,
+                          reporter: Any = None
+                          ) -> Iterator[tuple[str, bytes]]:
+        fs = FileSystem.get(split.path, conf)
+        return iter([(split.path, fs.read_bytes(split.path))])
+
+
+@dataclass
+class MultiFileSplit(InputSplit):
+    """Several whole-file chunks, each ``(path, start, length)``."""
+    parts: list = field(default_factory=list)
+
+    @property
+    def length(self) -> int:
+        return sum(p[2] for p in self.parts)
+
+
+class CombineFileInputFormat(FileInputFormat):
+    """Packs whole files into :class:`MultiFileSplit` s of at least
+    ``mapred.max.split.size`` bytes (the total over the map count hint
+    where that is unset); the records are :class:`TextInputFormat`'s."""
+
+    def get_splits(self, conf: Any, num_splits: int) -> list[InputSplit]:
+        files = self.list_input_files(conf)
+        total = sum(st.length for _, st in files)
+        target = conf.get_int("mapred.max.split.size", 2**63 - 1)
+        if target in (0, 2**63 - 1):
+            target = max(1, total // max(1, num_splits))
+        splits: list[InputSplit] = []
+        hosts: list[str] = []
+        parts: list = []
+        size = 0
+        for fs, st in files:
+            hosts += _hosts(fs, st, 0, st.length)
+            parts.append((str(st.path), 0, st.length))
+            size += st.length
+            if size >= target:
+                splits.append(MultiFileSplit(hosts, parts=parts))
+                hosts, parts, size = [], [], 0
+        if parts:
+            splits.append(MultiFileSplit(hosts, parts=parts))
+        return splits
+
+    def get_record_reader(self, split: MultiFileSplit, conf: Any,
+                          reporter: Any = None) -> Iterator[tuple[int, str]]:
+        for path, start, length in split.parts:
+            yield from LineRecordReader(FileSystem.get(path, conf), path,
+                                        start, length)
+
+    def read_batch(self, split: MultiFileSplit, conf: Any) -> RecordBatch:
+        """Each part's :meth:`TextInputFormat.read_batch`, concatenated."""
+        text = TextInputFormat()
+        return RecordBatch.concat([
+            text.read_batch(FileSplit([], path, start, length), conf)
+            for path, start, length in split.parts])
 
 
 def load_dense(fs: FileSystem, path: str) -> np.ndarray:

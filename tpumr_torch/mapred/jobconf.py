@@ -27,6 +27,10 @@ class JobConf(Configuration):
     def __init__(self, other: "Configuration | None" = None) -> None:
         super().__init__(other=other, defaults=DEFAULTS)
 
+    @property
+    def job_name(self) -> str:
+        return self.get("mapred.job.name", "")
+
     def set_job_name(self, name: str) -> None:
         self.set("mapred.job.name", name)
 
@@ -34,6 +38,10 @@ class JobConf(Configuration):
 
     def set_input_paths(self, *paths: str) -> None:
         self.set("mapred.input.dir", ",".join(paths))
+
+    def add_input_path(self, path: str) -> None:
+        self.set("mapred.input.dir",
+                 ",".join(self.get_strings("mapred.input.dir") + [path]))
 
     def set_output_path(self, path: str) -> None:
         self.set("mapred.output.dir", path)

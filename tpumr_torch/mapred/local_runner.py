@@ -10,11 +10,13 @@ through the normal collect/spill path. Where the window cannot take the job
 (a host kernel, an input format without ``read_batch``), the rest of the
 job's maps run one by one, each through the per-task device path. A
 map-only job (``mapred.reduce.tasks=0``) commits each map attempt's output
-and has no reduce phase. A device-shuffled job
-(``JobConf.set_device_shuffle``) is planned at submission with one gang
-reduce task (``device_shuffle.prepare_device_shuffle_job``, on the runner's
-copy of the conf), which sorts every map's dense output on the job's
-device and writes the job's ranges (``:68-70``, ``:138-151``); any other
+and has no reduce phase; in a job with reduces a map attempt that wrote
+side files (``lib.MultipleOutputs``) is committed too (``:98-101``). A
+device-shuffled job (``JobConf.set_device_shuffle``) is planned at
+submission with one gang reduce task
+(``device_shuffle.prepare_device_shuffle_job``, on the runner's copy of the
+conf), which sorts every map's dense output on the job's device and writes
+the job's ranges (``:68-70``, ``:138-151``); any other
 job runs one reduce task per partition over lazy views of the maps' IFiles
 (``shuffle_copier.LocalSegmentSource``).
 
@@ -123,7 +125,10 @@ class LocalJobRunner:
                 conf, task, f"{work_root}/map_{task.partition:06d}",
                 reporter))
             task.device_prefetch = None   # free the window's host copy
-            if num_reduces == 0:          # a map-only job's output
+            if num_reduces == 0 or \
+                    committer.needs_commit(str(task.attempt_id)):
+                # a map-only job's output, or the side files of a map in a
+                # job with reduces (lib.MultipleOutputs)
                 committer.commit_task(str(task.attempt_id))
             counters.merge(reporter.counters)
             counters.incr(JobCounter.GROUP, JobCounter.LAUNCHED_MAP_TASKS)

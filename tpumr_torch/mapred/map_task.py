@@ -5,7 +5,9 @@ job's output format.
 
 Counterpart of ``tpumr/mapred/map_task.py``. Every attempt runs on its own
 copy of the job conf carrying its identity (:func:`localize_task_conf`),
-with ``tpumr.task.work.dir`` set to its committer work dir (``:271, 297``).
+with ``tpumr.task.work.dir`` set to its committer work dir (``:271, 297``)
+and, for a split of a file, ``tpumr.task.input.path`` to that file's path
+(``:241-244``).
 The runner is chosen as the JAX package chooses it (``:248-265``,
 ``:438-451``): for an accelerator task the job's
 ``mapred.map.runner.tpu.class`` (``GpuMapRunner`` unless a job names
@@ -228,6 +230,11 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
         backend_tasks, backend_ms = (BackendCounter.CPU_MAP_TASKS,
                                      BackendCounter.CPU_MAP_MILLIS)
     split = InputSplit.from_dict(task.split) if task.split else None
+    if split is not None and getattr(split, "path", None):
+        # the split's source path, before any mapper is built, for mappers
+        # that pick a delegate by input (lib.DelegatingMapper,
+        # contrib.datajoin) ≈ map.input.file (``:241-244``)
+        conf.set("tpumr.task.input.path", str(split.path))
     in_fmt = new_instance(conf.get_input_format(), conf)
 
     def run_mapper(collector: OutputCollector) -> None:

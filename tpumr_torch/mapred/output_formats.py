@@ -2,7 +2,7 @@
 commit.
 
 Counterpart of ``TextOutputFormat``, ``SequenceFileOutputFormat``,
-``DenseNpyOutputFormat`` and ``FileOutputCommitter`` in
+``DenseNpyOutputFormat``, ``NullOutputFormat`` and ``FileOutputCommitter`` in
 ``tpumr/mapred/output_formats.py``. Tasks write under
 ``$out/_temporary/<attempt>/``; a committed attempt's files move into
 ``$out``; the job commit writes ``_SUCCESS`` and removes ``_temporary``.
@@ -23,8 +23,10 @@ TEMP_DIR = "_temporary"
 SUCCESS_MARKER = "_SUCCESS"
 
 
-def part_name(partition: int) -> str:
-    return f"part-{partition:05d}"
+def part_name(partition: int, prefix: str = "part") -> str:
+    """``prefix`` names a side output (``lib.MultipleOutputs``); "part" is
+    the job's main output."""
+    return f"{prefix}-{partition:05d}"
 
 
 class _TextWriter:
@@ -61,12 +63,12 @@ class FileOutputFormat:
 class TextOutputFormat(FileOutputFormat):
     """key<TAB>value lines, one part file per reduce."""
 
-    def get_record_writer(self, conf: Any, work_dir: str,
-                          partition: int) -> _TextWriter:
+    def get_record_writer(self, conf: Any, work_dir: str, partition: int,
+                          prefix: str = "part") -> _TextWriter:
         fs = FileSystem.get(work_dir, conf)
         sep = conf.get("mapred.textoutputformat.separator", "\t")
-        return _TextWriter(fs.create(Path(work_dir).child(part_name(partition))),
-                           sep)
+        return _TextWriter(fs.create(Path(work_dir).child(
+            part_name(partition, prefix))), sep)
 
 
 class _SeqWriter:
@@ -92,13 +94,13 @@ class SequenceFileOutputFormat(FileOutputFormat):
     ``mapred.output.compression.codec`` when ``mapred.output.compress`` is
     set."""
 
-    def get_record_writer(self, conf: Any, work_dir: str,
-                          partition: int) -> _SeqWriter:
+    def get_record_writer(self, conf: Any, work_dir: str, partition: int,
+                          prefix: str = "part") -> _SeqWriter:
         fs = FileSystem.get(work_dir, conf)
         codec = conf.get("mapred.output.compression.codec", "none") \
             if conf.get_boolean("mapred.output.compress", False) else "none"
-        return _SeqWriter(
-            fs.create(Path(work_dir).child(part_name(partition))), codec)
+        return _SeqWriter(fs.create(Path(work_dir).child(
+            part_name(partition, prefix))), codec)
 
 
 class _DenseNpyWriter:
@@ -157,11 +159,30 @@ class DenseNpyOutputFormat(FileOutputFormat):
     #: that claims them
     claims_device_rows = True
 
-    def get_record_writer(self, conf: Any, work_dir: str,
-                          partition: int) -> _DenseNpyWriter:
+    def get_record_writer(self, conf: Any, work_dir: str, partition: int,
+                          prefix: str = "part") -> _DenseNpyWriter:
         fs = FileSystem.get(work_dir, conf)
-        return _DenseNpyWriter(
-            conf, fs, Path(work_dir).child(part_name(partition) + ".npy"))
+        return _DenseNpyWriter(conf, fs, Path(work_dir).child(
+            part_name(partition, prefix) + ".npy"))
+
+
+class _NullWriter:
+    def write(self, key: Any, value: Any) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class NullOutputFormat:
+    """Discards every record and checks nothing."""
+
+    def get_record_writer(self, conf: Any, work_dir: str, partition: int,
+                          prefix: str = "part") -> _NullWriter:
+        return _NullWriter()
+
+    def check_output_specs(self, conf: Any) -> None:
+        pass
 
 
 class FileOutputCommitter:
