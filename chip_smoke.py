@@ -175,6 +175,26 @@ ChainReducer with a MultipleOutputs side file committed beside the part
 file of one reduce; the inner join of 10,000 orders and 1,500 users lines
 through contrib.datajoin; and a sqlite-to-sqlite job (DBInputFormat,
 DBOutputFormat) over 10^5 rows, each against an oracle computed there.
+Master_state, the master's state (job history, restart recovery,
+speculation): the hybrid and pipeline clusters' masters write job history
+and recover at start (grace 800 ms). (b), on the pipeline cluster after
+cluster_shuffle (c): a 3-round K-Means loop node whose master is stopped
+with nothing finalised once round 0's job committed, and a new master
+started on its address: the pipeline succeeds, round 0 keeps its one job,
+every round's centroids are byte-identical to the loop submission's same
+round, kmeans_assign_partials 8 times a round. (c), on the hybrid
+cluster after accel_fault: one K-Means round over the first 4 splits of
+1,000,000 rows with map 0 a task.slow straggler for 8 s and speculation
+on (the hybrid cluster turns it off for the other phases, whose gates
+hold every map to its first attempt): only map 0 is twinned, its twin
+wins, and the job ends under 8 s. (a), on the hybrid cluster after
+pipes_isolation (c), beside the TeraSort chain: the hybrid K-Means job
+(8 maps, slow start 1.0) whose master is
+stopped once every map launched and 4 folded: the job succeeds under its
+new id, which the polling client follows, with jobs_recovered 1, the
+folded maps recovered, the runner adopted, no map launched by the
+restarted master and kmeans_assign_partials once a GPU map; (a) and (c)
+against float64 Lloyd steps.
 It prints the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -301,6 +321,17 @@ PEAK_BF16_FLOP_PER_S = 989e12
 ACCEL_SPLITS, ACCEL_PROBE_MS, ACCEL_DEVICE_FAULTS = 4, 200, 3
 ACCEL_SLEEP_TIMEOUT_MS = 2000
 ACCEL_CHECK_N = 1_000_000
+#: master_state: the recovery grace; (c)'s straggler crawl, its age floor,
+#: and its job (4 splits of 1,000,000 rows: one CPU wave, then the twin's)
+MS_GRACE_MS = 800
+MS_SLOW_MS, MS_SPEC_FLOOR_S = 8000, 0.3
+MS_SPEC_SPLITS, MS_SPEC_ROWS = 4, 1_000_000
+#: master_state (b): the loop's rounds; at least this many maps folded
+#: before (a) stops its master
+MS_LOOP_ROUNDS, MS_FOLDED = 3, 4
+#: the clusters that fail attempts or lose outputs on purpose (accel_fault,
+#: cluster_shuffle (c)) must not blacklist their one runner
+MS_MAX_FAULTS = 1000
 #: the pipes_isolation phase: the card memory the killed GPU child holds
 #: (MB), the seconds the card's free memory has to grow by it after the
 #: kill, and the interval of the isolated children's samples (s)
@@ -1021,6 +1052,10 @@ def rounds_phase(work: str, n: int, km) -> dict:
     return summary
 
 
+FAULT_METRICS = ("tpu_demotions", "jobs_tpu_quarantined",
+                 "tasks_reaped_timeout", "tpu_devices_quarantined")
+
+
 def check_no_faults(master, label: str) -> dict:
     """accel_fault (5): no job a cluster ran was demoted or reaped: the
     master's counts and every job's TPU_DEMOTIONS and TASKS_REAPED_TIMEOUT
@@ -1029,7 +1064,9 @@ def check_no_faults(master, label: str) -> dict:
     metrics = master.get_metrics()
     with master.lock:
         jobs = list(master.jobs.values())
-    bad = {k: v for k, v in metrics.items() if v}
+    # the fault counts; the master's other counts (launches, recovery)
+    # are no fault
+    bad = {k: metrics[k] for k in FAULT_METRICS if metrics[k]}
     for jip in jobs:
         for name in (JobCounter.TPU_DEMOTIONS,
                      JobCounter.TASKS_REAPED_TIMEOUT):
@@ -1896,9 +1933,9 @@ def isolation_pair(c, work: str, km) -> dict:
 class PipesLater:
     """pipes_isolation (b) and (c) on the hybrid phase's cluster, which
     stays up past the hybrid phase so that they run beside the pipeline
-    phase's TeraSort chain (host work, no K-Means launch in this process):
-    :meth:`run`, a Beside's function there, runs them, shuts the cluster
-    down and prints the phase's line; :meth:`close` shuts it down and
+    phase's TeraSort chain (host work, no K-Means launch in this process),
+    then master_state (a): :meth:`run`, a Beside's function there,
+    runs them, shuts the cluster down and prints the pipes phase's line; :meth:`close` shuts it down and
     removes the hybrid work directory (which keeps the points under
     ``pipes-points.npy``, points4.npy and cents.npy) wherever that did not
     happen yet."""
@@ -1922,6 +1959,11 @@ class PipesLater:
             t = time.monotonic()
             iso = isolation_pair(self.cluster, self.work, self.km)
             c_s = time.monotonic() - t
+            # master_state (a), whose restart replaces the cluster's master
+            t = time.monotonic()
+            restart = master_state_restart(self.cluster, self.work,
+                                           self.ref, self.km)
+            restart_s = time.monotonic() - t
         finally:
             self.shutdown()
         launches = pipes["gpu_launches"] + sum(
@@ -1943,7 +1985,8 @@ class PipesLater:
             "children_on_card": len(iso["process"]["children_on_card"]),
             "free_before_b_gb": pipes["free_before_gb"],
             "free_after_b_gb": pipes["free_after_gb"]}))
-        return {"b_s": b_s, "c_s": c_s, "launches": launches}
+        return {"b_s": b_s, "c_s": c_s, "launches": launches,
+                "master_state": {"a_s": restart_s, "a": restart}}
 
     def shutdown(self) -> None:
         """Stop the cluster once; its runner's threads must all end."""
@@ -1962,6 +2005,238 @@ class PipesLater:
             self.shutdown()
         finally:
             shutil.rmtree(self.work, ignore_errors=True)
+
+
+def poll_status(running, timeout_s: float = HYB_JOB_TIMEOUT_S) -> dict:
+    """A job's or a pipeline's status, polled through a master restart:
+    a poll that fails while the master is away is tried again."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            return running.status()
+        except Exception:  # noqa: BLE001 — the master is restarting
+            check(time.monotonic() < deadline,
+                  "the master never answered a status poll")
+            time.sleep(0.05)
+
+
+def wait_terminal(running, timeout_s: float = HYB_JOB_TIMEOUT_S) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st = poll_status(running, timeout_s)
+        if st["state"] in ("SUCCEEDED", "FAILED", "KILLED"):
+            return st
+        check(time.monotonic() < deadline, f"never ended: {st}")
+        time.sleep(0.02)
+
+
+def restart_master(c):
+    """tests/test_master_restart.py::_kill_and_restart_master: the
+    cluster's master stopped with nothing finalised, and a new one with
+    the cluster's conf (history, recovery on) on the same address."""
+    from tpumr_torch.mapred.jobtracker import JobMaster
+    host, port = c.master.address
+    c.master.stop()
+    for _ in range(200):
+        try:
+            c.master = JobMaster(c.conf, host=host, port=port).start()
+            return c.master
+        except OSError:
+            time.sleep(0.05)
+    fail("could not bind the master's port again")
+
+
+def master_state_speculation(c, work: str, cents: np.ndarray, km) -> dict:
+    """master_state (c), targeted speculation, on the hybrid cluster after
+    accel_fault and the pipes kill check, in line: one
+    K-Means round over the hybrid points' first MS_SPEC_SPLITS x
+    MS_SPEC_ROWS rows (one CPU wave for the maps the straggler leaves,
+    then one for its twin) with map 0 a task.slow straggler for MS_SLOW_MS
+    ms, speculation on (the cluster turns it off for the other phases),
+    mapred.speculative.min.runtime.s MS_SPEC_FLOOR_S and optional
+    scheduling off (it would give the job no CPU slot once no map is
+    pending). Gates: the seam fired once; only map 0 twinned (its
+    next_attempt 2, the others' 1); one twin launched and won, none wasted
+    or in flight; the job under MS_SLOW_MS; kmeans_assign_partials once a
+    successful GPU map; the centroids against a float64 Lloyd step."""
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.mapred.job_client import JobClient
+    from tpumr_torch.utils import fi
+    n = MS_SPEC_SPLITS * MS_SPEC_ROWS
+    spec = os.path.join(work, "spec")
+    os.makedirs(spec, exist_ok=True)
+    src = np.load(os.path.join(work, "points.npy"), mmap_mode="r")
+    np.save(os.path.join(spec, "points.npy"), np.ascontiguousarray(src[:n]))
+    del src
+    ref = oracle(spec, n, cents, km, compare=False)["centroids"]
+    conf = c.create_job_conf()
+    conf.set_job_name("master-state-speculation")
+    conf.set_input_paths(f"file://{spec}/points.npy")
+    conf.set_output_path(f"file://{spec}/out")
+    conf.set_input_format(DenseInputFormat)
+    conf.set("tpumr.dense.split.rows", MS_SPEC_ROWS)
+    conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+    conf.set_map_kernel("kmeans-assign")
+    conf.set("mapred.reducer.class", "tpumr_torch.ops.kmeans.CentroidReducer")
+    conf.set_num_reduce_tasks(1)
+    conf.set("mapred.jobtracker.map.optionalscheduling", False)
+    conf.set("mapred.speculative.execution", True)
+    conf.set("mapred.speculative.min.runtime.s", MS_SPEC_FLOOR_S)
+    conf.set("tpumr.fi.task.slow.m0.probability", 1.0)
+    conf.set("tpumr.fi.task.slow.m0.max.failures", 1)
+    conf.set("tpumr.fi.task.slow.ms", MS_SLOW_MS)
+    fired = fi.fired("task.slow.m0")
+    km.clear_centroid_cache()
+    zero_launch_counts(km)
+    client = JobClient(conf)
+    try:
+        t = time.monotonic()
+        running = client.submit_job(conf)
+        st = running.wait_for_completion(timeout=HYB_JOB_TIMEOUT_S)
+        secs = time.monotonic() - t
+    finally:
+        client.close()
+    launches = launch_counts(km)
+    check(st["state"] == "SUCCEEDED", f"master_state (c): {st}")
+    jip = c.master.jobs[running.job_id]
+    with jip.lock:
+        twin = [(aid, s.run_on_tpu) for aid, s in jip.maps[0].attempts.items()
+                if aid.endswith("_1")]
+        nexts = [t.next_attempt for t in jip.maps]
+        winner = jip.maps[0].successful_attempt
+    got = read_centroids(os.path.join(spec, "out", "part-00000"))
+    check(sorted(got) == list(range(K)), f"master_state (c): clusters "
+          f"{sorted(got)}")
+    err = np.abs(np.stack([got[i] for i in range(K)]) - ref)
+    row = {"job_s": secs, "placement": st["placement_seq"],
+           "twin": twin[0][0] if twin else "",
+           "twin_on": ("gpu" if twin[0][1] else "cpu") if twin else "",
+           "winner": winner, "next_attempts": nexts,
+           "speculative": {k: st[f"speculative_{k}"] for k in
+                           ("launched", "won", "wasted", "in_flight")},
+           "slow_fired": fi.fired("task.slow.m0") - fired,
+           "gpu_maps": st["finished_tpu_maps"], "launches": launches,
+           "max_abs_err": float(err.max())}
+    log("master_state_speculation " + json.dumps(row))
+    check(row["slow_fired"] == 1, f"master_state (c): task.slow.m0 fired "
+          f"{row['slow_fired']} times")
+    check(nexts == [2] + [1] * (len(nexts) - 1),
+          f"master_state (c): next attempts {nexts}, only map 0 twinned")
+    check(row["speculative"] == {"launched": 1, "won": 1, "wasted": 0,
+                                 "in_flight": 0},
+          f"master_state (c): speculation {row['speculative']}")
+    check(winner == row["twin"], f"master_state (c): map 0 won by {winner}")
+    check(secs < MS_SLOW_MS / 1000.0,
+          f"master_state (c): {secs:.2f} s, not under the straggler's "
+          f"{MS_SLOW_MS / 1000.0:.0f} s")
+    check(launches == {"kmeans_assign_partials": st["finished_tpu_maps"],
+                       "kmeans_assign": 0},
+          f"master_state (c): launches {launches} for "
+          f"{st['finished_tpu_maps']} GPU maps")
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL * np.abs(ref))),
+          f"master_state (c): centroids off the float64 oracle by up to "
+          f"{err.max():.3g}")
+    return row
+
+
+def master_state_restart(c, work: str, ref: np.ndarray, km) -> dict:
+    """master_state (a), a master restart on the hybrid cluster (whose
+    master writes history and recovers at start, grace MS_GRACE_MS): the
+    hybrid K-Means job over the hybrid points (8 splits, slow start 1.0);
+    once every map launched and MS_FOLDED folded, the master is stopped
+    with nothing finalised and a new one started on its address
+    (:func:`restart_master`). Gates: the job SUCCEEDED under its new id,
+    which the polling client followed; jobs_recovered 1, attempts_recovered
+    at least the maps folded before the stop, trackers_adopted >= 1; the
+    restarted master launched no map; kmeans_assign_partials once a GPU
+    map of the job (no recovered map ran again on the card); the centroids
+    against the hybrid phase's float64 Lloyd step."""
+    from tpumr_torch.mapred.input_formats import DenseInputFormat
+    from tpumr_torch.mapred.job_client import JobClient
+    conf = c.create_job_conf()
+    conf.set_job_name("master-state-restart")
+    conf.set_input_paths(f"file://{work}/pipes-points.npy")
+    conf.set_output_path(f"file://{work}/out-ms-restart")
+    conf.set_input_format(DenseInputFormat)
+    conf.set("tpumr.dense.split.rows", HYB_ROWS)
+    conf.set("tpumr.kmeans.centroids", f"file://{work}/cents.npy")
+    conf.set_map_kernel("kmeans-assign")
+    conf.set("mapred.reducer.class", "tpumr_torch.ops.kmeans.CentroidReducer")
+    conf.set_num_reduce_tasks(1)
+    conf.set("mapred.reduce.slowstart.completed.maps", 1.0)
+    km.clear_centroid_cache()
+    zero_launch_counts(km)
+    client = JobClient(conf)
+    try:
+        t0 = time.monotonic()
+        running = client.submit_job(conf)
+        old_id = running.job_id
+        jip = c.master.jobs[old_id]
+        deadline = time.monotonic() + HYB_JOB_TIMEOUT_S
+        while not (jip.pending_map_count() == 0
+                   and jip.finished_maps >= MS_FOLDED):
+            check(jip.state == "RUNNING" and time.monotonic() < deadline,
+                  f"master_state (a): {jip.state} before the stop")
+            time.sleep(0.005)
+        folded = jip.finished_maps
+        before_seq = jip.placement_timeline()["seq"]
+        wall_stop = time.time()
+        t_stop = time.monotonic()
+        m2 = restart_master(c)
+        restart_s = time.monotonic() - t_stop
+        st = wait_terminal(running)
+        stop_to_done = time.monotonic() - t_stop
+        secs = time.monotonic() - t0
+    finally:
+        client.close()
+    launches = launch_counts(km)
+    check(st["state"] == "SUCCEEDED", f"master_state (a): {st}")
+    new_id = running.job_id
+    metrics = m2.get_metrics()
+    jip2 = m2.jobs[new_id]
+    with jip2.lock:
+        attempts = sorted(t.successful_attempt for t in jip2.maps)
+        # where the seconds after the stop went: the maps that were still
+        # running, then the reduce (wall stamps of the runner's statuses)
+        maps_done = max(t.report.finish_time for t in jip2.maps) - wall_stop
+        reduce_start = jip2.reduces[0].report.start_time - wall_stop
+    # the recovered GPU maps and those that ended after the restart
+    gpu_maps = st["finished_tpu_maps"]
+    got = read_centroids(os.path.join(work, "out-ms-restart", "part-00000"))
+    check(sorted(got) == list(range(K)), f"master_state (a): clusters "
+          f"{sorted(got)}")
+    err = np.abs(np.stack([got[i] for i in range(K)]) - ref)
+    row = {"job_s": secs, "stop_to_succeeded_s": stop_to_done,
+           "restart_s": restart_s, "maps_done_after_stop_s": maps_done,
+           "reduce_start_after_stop_s": reduce_start,
+           "folded_before_stop": folded,
+           "placement_before_stop": before_seq, "old_id": old_id,
+           "new_id": new_id, "gpu_maps": gpu_maps,
+           "cpu_maps": st["finished_cpu_maps"],
+           "map_attempts": attempts, "launches": launches,
+           "metrics": {k: metrics[k] for k in (
+               "jobs_recovered", "attempts_recovered", "attempts_adopted",
+               "trackers_adopted", "maps_launched_cpu", "maps_launched_tpu",
+               "reduces_launched")},
+           "max_abs_err": float(err.max())}
+    log("master_state_restart " + json.dumps(row))
+    check(new_id != old_id and m2.get_recovered_jobs().get(old_id) == new_id,
+          f"master_state (a): the client polls {new_id}, the master "
+          f"recovered {m2.get_recovered_jobs()}")
+    check(metrics["jobs_recovered"] == 1
+          and metrics["attempts_recovered"] >= folded
+          and metrics["trackers_adopted"] >= 1,
+          f"master_state (a): {row['metrics']} ({folded} folded)")
+    check(metrics["maps_launched_cpu"] + metrics["maps_launched_tpu"] == 0,
+          f"master_state (a): the restarted master launched maps: "
+          f"{row['metrics']}")
+    check(launches == {"kmeans_assign_partials": gpu_maps,
+                       "kmeans_assign": 0},
+          f"master_state (a): launches {launches} for {gpu_maps} GPU maps")
+    check(bool(np.all(err <= CENTROID_ATOL + CENTROID_RTOL * np.abs(ref))),
+          f"master_state (a): centroids off the float64 oracle by up to "
+          f"{err.max():.3g}")
+    return row
 
 
 def hybrid_data(work: str, n: int, mm_n: int) -> np.ndarray:
@@ -2104,6 +2379,16 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
         # the accel_fault steps' runner settings; no other job meets them
         base.set("tpumr.tpu.device.probe.interval.ms", ACCEL_PROBE_MS)
         base.set("tpumr.tpu.device.quarantine.failures", ACCEL_DEVICE_FAULTS)
+        # accel_fault fails attempts on purpose: the one runner stays in
+        base.set("tpumr.tracker.max.faults", MS_MAX_FAULTS)
+        # the gates here hold every map to its first attempt; master_state
+        # (c) turns speculation on for its own job
+        base.set("mapred.speculative.execution", False)
+        # master_state (a): the master writes history from the start, and
+        # the one started in its place recovers from it
+        base.set("tpumr.history.dir", os.path.join(work, "history"))
+        base.set("mapred.jobtracker.restart.recover", True)
+        base.set("mapred.jobtracker.restart.recovery.grace.ms", MS_GRACE_MS)
         runs = []
         c = MiniMRCluster(num_trackers=1, cpu_slots=3, tpu_slots=1,
                           conf=base)
@@ -2154,6 +2439,11 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
         finally:
             held.close()
         ref = oracle(work, n, cents, km, compare=False)["centroids"]
+        # master_state (c), in line: beside the chain's host threads its
+        # CPU maps crawl for the interpreter lock (PR 16 run 1)
+        t = time.monotonic()
+        spec = master_state_speculation(c, work, cents, km)
+        spec["seconds"] = time.monotonic() - t
 
         for row in runs:
             tag = row["run"]
@@ -2221,7 +2511,7 @@ def hybrid_phase(km, n: int, keep_points: str) -> dict:
                 "launches": sum(r["launches"]["kmeans_assign_partials"]
                                 for r in runs)
                 + accel["quarantine"]["launches"]["kmeans_assign_partials"],
-                "pipes": later}
+                "pipes": later, "master_state_c": spec}
     except BaseException:
         if later is not None:
             later.close()
@@ -2413,6 +2703,77 @@ def pipeline_loop(c, work: str, n: int, km) -> dict:
     return row
 
 
+def pipeline_restart(c, work: str, n: int, km) -> dict:
+    """master_state (b), a pipeline through a master restart, on the
+    pipeline phase's cluster (1 runner, 1 GPU slot; its master writes
+    history and recovers at start, grace MS_GRACE_MS): a MS_LOOP_ROUNDS-
+    round K-Means loop node from (a)'s seeds (pipe_round_conf, prefix
+    rst-); once round 0's job committed, the master is stopped with
+    nothing finalised and a new one started on its address. Gates: the
+    pipeline SUCCEEDED under its id; round 0 kept its one job (settled
+    from history, not run again) and each later round ran one; every
+    round's centroid file byte-identical to the same round of (a)'s loop
+    submission (one slot: the placement is fixed); kmeans_assign_partials
+    n_maps times a round; pipelines_recovered 1."""
+    from tpumr_torch.pipeline import JobGraph, PipelineClient
+    n_maps = -(-n // HYB_ROWS)
+    never = {"group": km.SHIFT_COUNTER_GROUP, "counter": km.SHIFT_COUNTER,
+             "op": "lt", "value": 0}
+    shutil.copyfile(os.path.join(work, "pipe-cents-r0.npy"),
+                    os.path.join(work, "rst-cents-r0.npy"))
+    km.clear_centroid_cache()
+    zero_launch_counts(km)
+    client = PipelineClient(c.create_job_conf())
+    try:
+        t0 = time.monotonic()
+        running = client.submit(JobGraph("kmeans-restart").loop(
+            "km", pipe_round_conf(work, "rst-"), max_rounds=MS_LOOP_ROUNDS,
+            converge=never))
+        deadline = time.monotonic() + PIPE_TIMEOUT_S
+        while True:
+            jobs = poll_status(running)["nodes"]["km"]["jobs"]
+            if jobs and c.master.jobs[jobs[0]].finalized.is_set():
+                break
+            check(time.monotonic() < deadline,
+                  "master_state (b): round 0 never committed")
+            time.sleep(0.005)
+        round0 = jobs[0]
+        t_stop = time.monotonic()
+        m2 = restart_master(c)
+        st = wait_terminal(running, PIPE_TIMEOUT_S)
+        stop_to_done = time.monotonic() - t_stop
+        secs = time.monotonic() - t0
+    finally:
+        client.close()
+    launches = launch_counts(km)
+    node = st["nodes"]["km"]
+    same = []
+    for r in range(1, MS_LOOP_ROUNDS + 1):
+        with open(os.path.join(work, f"rst-cents-r{r}.npy"), "rb") as f, \
+                open(os.path.join(work, f"pipe-cents-r{r}.npy"), "rb") as g:
+            same.append(f.read() == g.read())
+    metrics = m2.get_metrics()
+    row = {"seconds": secs, "stop_to_succeeded_s": stop_to_done,
+           "jobs": node["jobs"], "round0": round0,
+           "rounds_identical": same, "launches": launches,
+           "pipelines_recovered": metrics["pipelines_recovered"],
+           "jobs_recovered": metrics["jobs_recovered"],
+           "maps_launched_tpu": metrics["maps_launched_tpu"]}
+    log("master_state_pipeline " + json.dumps(row))
+    check(st["state"] == "SUCCEEDED", f"master_state (b): {st}")
+    check(node["jobs"][0] == round0 and len(set(node["jobs"]))
+          == MS_LOOP_ROUNDS, f"master_state (b): round jobs {node['jobs']}")
+    check(all(same), f"master_state (b): rounds identical {same}")
+    check(launches == {"kmeans_assign_partials": MS_LOOP_ROUNDS * n_maps,
+                       "kmeans_assign": 0},
+          f"master_state (b): launches {launches}, expected "
+          f"{MS_LOOP_ROUNDS * n_maps}")
+    check(metrics["pipelines_recovered"] == 1
+          and metrics["maps_launched_tpu"] <= (MS_LOOP_ROUNDS - 1) * n_maps,
+          f"master_state (b): {row}")
+    return row
+
+
 def wait_for_line(path: str, prefix: str, proc, timeout: float) -> str:
     """The first line of a daemon's log that contains ``prefix``."""
     deadline = time.monotonic() + timeout
@@ -2525,8 +2886,8 @@ def daemons_reaper(addr: str, work: str, run) -> dict:
     master = RpcClient(host, int(port))
     try:
         before = master.call("get_metrics")
-        check(not any(before.values()), f"the daemons' jobs were demoted "
-              f"or reaped: {before}")
+        check(not any(before[k] for k in FAULT_METRICS),
+              f"the daemons' jobs were demoted or reaped: {before}")
         t = time.monotonic()
         run("examples_sleep", [
             "-jt", addr, "examples", "sleep", "-m", "4", "-r", "1", "--tpu",
@@ -2701,12 +3062,21 @@ def pipeline_phase(km, n: int, tera_rows: int, points: str,
                     seeds.astype(np.float32))
         gpu_runner.clear_split_caches()
         devcache.clear_device_cache()
+        # master_state (b): the master writes history, and the one
+        # started in its place recovers; cluster_shuffle (c) loses outputs
+        # on purpose, so its one runner must not be blacklisted
+        pconf = JobConf()
+        pconf.set("tpumr.history.dir", os.path.join(work, "history"))
+        pconf.set("mapred.jobtracker.restart.recover", True)
+        pconf.set("mapred.jobtracker.restart.recovery.grace.ms", MS_GRACE_MS)
+        pconf.set("tpumr.tracker.max.faults", MS_MAX_FAULTS)
         with MiniMRCluster(num_trackers=1, cpu_slots=0, tpu_slots=1,
-                           conf=JobConf()) as c:
+                           conf=pconf) as c:
             loop = pipeline_loop(c, work, n, km)
             # cluster_shuffle (c), on this cluster and its points
             lost = lost_output_rounds(c, work, n, km)
             check_no_faults(c.master, "pipeline")
+            restart = pipeline_restart(c, work, n, km)
         km.clear_pipeline_caches()
         gpu_runner.clear_split_caches()
         # (b)'s daemons and programs, processes of their own, beside (c)
@@ -2723,11 +3093,14 @@ def pipeline_phase(km, n: int, tera_rows: int, points: str,
                    if th.name.startswith(("heartbeat-", "task-",
                                           "rpc-server", "jobmaster-"))],
               "a pipeline cluster left threads running")
-        # the phase's seconds as before cluster_shuffle (c) joined it
-        secs = time.monotonic() - t_phase - lost["seconds"]
+        # the phase's seconds as before cluster_shuffle (c) and
+        # master_state (b) joined it
+        secs = (time.monotonic() - t_phase - lost["seconds"]
+                - restart["seconds"])
         log("pipeline_phase " + json.dumps({"seconds": secs}))
         return {"loop": loop, "cli": cli, "terasort": tera,
                 "seconds": secs, "lost_output": lost, "pipes": pipes_row,
+                "restart": restart,
                 "launches": sum(v["kmeans_assign_partials"]
                                 for v in loop["launches"].values())}
     finally:
@@ -4799,6 +5172,18 @@ def main() -> None:
         "a_s": user_api["seconds"], "b_s": user_api_host_out["process_s"],
         "new_api_job_s": user_api["new_api_job_s"],
         "old_api_warm_job_s": user_api["old_api_warm_job_s"]}))
+    ms_a, ms_b = pipeline["pipes"]["master_state"], pipeline["restart"]
+    ms_c = hybrid["master_state_c"]
+    ms_launches = sum(r["launches"]["kmeans_assign_partials"]
+                      for r in (ms_a["a"], ms_b, ms_c))
+    log("master_state_phase " + json.dumps({
+        "seconds": ms_a["a_s"] + ms_b["seconds"] + ms_c["seconds"],
+        "a_s": ms_a["a_s"], "b_s": ms_b["seconds"], "c_s": ms_c["seconds"],
+        "a_stop_to_succeeded_s": ms_a["a"]["stop_to_succeeded_s"],
+        "a_placement_before_stop": ms_a["a"]["placement_before_stop"],
+        "b_stop_to_succeeded_s": ms_b["stop_to_succeeded_s"],
+        "c_job_s": ms_c["job_s"], "c_twin_on": ms_c["twin_on"],
+        "launches": ms_launches}))
     lost = pipeline["lost_output"]
     log("cluster_shuffle_phase " + json.dumps({
         "seconds": tera["cluster"]["seconds"]
@@ -4814,7 +5199,8 @@ def main() -> None:
         + rounds["launches"]["kmeans_assign_partials"]
         + hybrid["launches"] + pipeline["launches"] + lost["launches"]
         + pipeline["pipes"]["launches"]
-        + user_api["launches"]["kmeans_assign_partials"],
+        + user_api["launches"]["kmeans_assign_partials"]
+        + ms_launches,
         "max_abs_err": max(max(r["max_abs_err"], r["sums_max_abs_err"])
                            for r in fused.values()),
         "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],

@@ -378,8 +378,18 @@ def _child(code: str) -> subprocess.Popen:
     return subprocess.Popen([sys.executable, "-c", code])
 
 
+def _sampler_threads() -> "set[threading.Thread]":
+    return {t for t in threading.enumerate() if t.name == "task-memory"}
+
+
 def test_memory_manager_kills_a_process_over_its_limit():
-    """TestTaskMemoryManager::test_kills_over_limit_process."""
+    """TestTaskMemoryManager::test_kills_over_limit_process. The JAX
+    package's managers name their samplers "task-memory" too, and theirs
+    never end (its TaskMemoryManager.stop only sets a flag, and its test
+    of the same name never calls it): a worker that ran that test earlier
+    holds one for good. So the threads alive before this test are left
+    out, and every sampler this manager started must have ended."""
+    before = _sampler_threads()
     proc = _child("import time\n"
                   "x = bytearray(80 * 1024 * 1024)\n"
                   "for i in range(0, len(x), 4096): x[i] = 1\n"
@@ -399,7 +409,7 @@ def test_memory_manager_kills_a_process_over_its_limit():
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
-    assert not [t for t in threading.enumerate() if t.name == "task-memory"]
+    assert not _sampler_threads() - before
 
 
 def test_memory_manager_leaves_a_process_under_its_limit():

@@ -143,13 +143,16 @@ def test_a_broken_conf_file_raises_before_the_command(tmp_path, monkeypatch,
 def test_unknown_and_unported_commands_return_255(capsys):
     assert cli.main(["frobnicate"]) == 255
     assert cli.main([]) == 255
-    for argv in (["job", "-history", "job_1"], ["job", "trace", "job_1"],
+    for argv in (["job", "trace", "job_1"],
                  ["job", "-diagnose", "job_1"], ["job", "stats", "job_1"],
                  ["pipeline", "trace", "pipe_1"]):
         assert cli.main(argv) == 255
     err = capsys.readouterr().err
     assert "Unknown command: frobnicate" in err
-    assert err.count("not ported to tpumr_torch") == 5
+    assert err.count("not ported to tpumr_torch") == 4
+    # job -history is ported: with no history directory it says so
+    assert cli.main(["job", "-history", "job_1"]) == 255
+    assert "set tpumr.history.dir" in capsys.readouterr().err
     assert cli.main(["version"]) == 0
     assert capsys.readouterr().out.startswith("tpumr_torch ")
 

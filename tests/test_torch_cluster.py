@@ -230,12 +230,16 @@ def _cluster_threads():
 
 @pytest.fixture
 def port_cluster():
-    """2 runners x (2 CPU + 1 accelerator slot), on the CPU."""
+    """2 runners x (2 CPU + 1 accelerator slot), on the CPU. Tests here
+    fail attempts on purpose, two jobs' worth in one test, so no runner
+    is blacklisted (blacklisting: tests/test_torch_speculation.py)."""
     FileSystem.clear_cache()
     clear_centroid_cache()
     gpu_runner.clear_split_caches()
+    conf = _port_conf()
+    conf.set("tpumr.tracker.max.faults", 1000)
     with MiniMRCluster(num_trackers=2, cpu_slots=2, tpu_slots=1,
-                       conf=_port_conf()) as c:
+                       conf=conf) as c:
         yield c
     FileSystem.clear_cache()
 

@@ -51,7 +51,7 @@ def test_importing_every_module_loads_no_jax_and_no_tpumr():
                  "pipes.submitter", "mapred.lib", "mapred.lib_db",
                  "streaming", "streaming.typedbytes", "streaming.pipe_runner",
                  "streaming.stream_job", "mapreduce", "mapreduce.lib",
-                 "contrib", "contrib.datajoin"):
+                 "contrib", "contrib.datajoin", "mapred.history"):
         assert f"tpumr_torch.{name}" in report["imported"]
     assert report["forbidden"] == []
 

@@ -15,12 +15,16 @@ read raises before the command runs.
 
 Commands: ``jobtracker`` and ``tasktracker``, which serve until SIGTERM or
 SIGINT (``:141-154, 212-236``); ``job -list | -status ID | -kill ID |
--counters ID | -list-active-trackers`` (``:267-396``; an unhealthy runner
-with its health script's report); ``pipeline submit GRAPH.json [-wait] |
+-counters ID | -events ID | -set-priority ID PRIO | -kill-task ATTEMPT |
+-fail-task ATTEMPT | -list-attempt-ids ID map|reduce running|completed |
+-list-active-trackers | -list-blacklisted-trackers`` (``:267-396``; an
+unhealthy runner with its health script's report; ``-status`` of a job a
+restarted master recovered says on stderr what it was recovered as) and
+``job -history ID [DIR]``, read from the history directory with no master
+(``_job_history``, ``:797-848``); ``pipeline submit GRAPH.json [-wait] |
 status ID | -list | -kill ID`` (``:397-479``); ``examples``; ``version``.
-``job -history``, ``job -diagnose``, ``job trace``, ``job stats`` and
-``pipeline trace`` wait for the port's job history and tracing: each says
-so and returns 255. ``pipes -program CPU_BIN [-tpubin GPU_BIN] -input IN
+``job -diagnose``, ``job trace``, ``job stats`` and ``pipeline trace`` wait
+for the port's tracing and metrics: each says so and returns 255. ``pipes -program CPU_BIN [-tpubin GPU_BIN] -input IN
 -output OUT [-reduces N] [-jobconf k=v,...]`` submits a pipes job
 (``pipes/submitter.main``, ``:1119-1121``); ``streaming -input IN -output
 OUT [-mapper CMD] [-reducer CMD|aggregate] [-combiner CMD]
@@ -50,7 +54,10 @@ Daemons:
 
 Clients:
   job ...              job control: -list | -status ID | -kill ID | -counters ID
-                       | -list-active-trackers
+                       | -events ID | -set-priority ID PRIO | -kill-task ATT
+                       | -fail-task ATT | -list-attempt-ids ID map|reduce
+                       running|completed | -list-active-trackers
+                       | -list-blacklisted-trackers | -history ID [DIR]
   pipeline ...         DAG-of-jobs pipelines: submit GRAPH.json [-wait] |
                        status ID | -list | -kill ID
   pipes ...            submit a pipes job: -program BIN [-tpubin BIN]
@@ -65,8 +72,8 @@ Clients:
 VERSION = "0.1.0"
 
 #: what the JAX package has and the port does not yet
-_NOT_PORTED = ("needs the job history and tracing, which are not ported "
-               "to tpumr_torch")
+_NOT_PORTED = ("needs tracing and the metrics registry, which are not "
+               "ported to tpumr_torch")
 
 
 def _parse_generic(argv: "list[str]"
@@ -196,16 +203,21 @@ def cmd_tasktracker(conf, argv: "list[str]") -> int:
 def cmd_job(conf, argv: "list[str]") -> int:
     from tpumr_torch.ipc.rpc import RpcClient, RpcError
     usage = ("Usage: python -m tpumr_torch.cli job -list | -status ID | "
-             "-kill ID | -counters ID | -list-active-trackers")
-    if argv and argv[0].lstrip("-") in ("history", "diagnose", "trace",
-                                        "stats"):
+             "-kill ID | -counters ID | -events ID | -set-priority ID PRIO "
+             "| -kill-task ATTEMPT | -fail-task ATTEMPT | -list-attempt-ids "
+             "ID map|reduce running|completed | -list-active-trackers | "
+             "-list-blacklisted-trackers | -history ID [HISTORY_DIR]")
+    if argv and argv[0] == "-history":
+        return _job_history(conf, argv[1:])   # offline: no master
+    if argv and argv[0].lstrip("-") in ("diagnose", "trace", "stats"):
         print(f"job {argv[0]} {_NOT_PORTED}", file=sys.stderr)
         return 255
     jt = _master(conf)
     if not jt:
         print("job control needs -jt HOST:PORT", file=sys.stderr)
         return 255
-    if not argv or (argv[0] not in ("-list", "-list-active-trackers")
+    if not argv or (argv[0] not in ("-list", "-list-active-trackers",
+                                    "-list-blacklisted-trackers")
                     and len(argv) < 2):
         print(usage, file=sys.stderr)
         return 255
@@ -220,13 +232,18 @@ def cmd_job(conf, argv: "list[str]") -> int:
                       f"\tmaps={st.get('map_progress'):.2f}"
                       f"\treduces={st.get('reduce_progress'):.2f}")
             return 0
-        if cmd == "-list-active-trackers":
-            for name in client.call("get_active_trackers"):
+        if cmd in ("-list-active-trackers", "-list-blacklisted-trackers"):
+            for name in client.call(
+                    "get_active_trackers" if cmd == "-list-active-trackers"
+                    else "get_blacklisted_trackers"):
                 print(name)
             return 0
         if cmd == "-status":
-            print(json.dumps(client.call("get_job_status", rest[0]),
-                             indent=2, default=str))
+            st = client.call("get_job_status", rest[0])
+            if st.get("job_id") and st["job_id"] != rest[0]:
+                print(f"job {rest[0]} was recovered as {st['job_id']} "
+                      f"after a master restart", file=sys.stderr)
+            print(json.dumps(st, indent=2, default=str))
             return 0
         if cmd == "-counters":
             print(json.dumps(client.call("get_counters", rest[0]),
@@ -237,6 +254,33 @@ def cmd_job(conf, argv: "list[str]") -> int:
             print(f"Killed {rest[0]}" if ok
                   else f"{rest[0]} already finished; not killed")
             return 0 if ok else 1
+        if cmd == "-events":
+            for ev in client.call("get_map_completion_events",
+                                  rest[0], 0, 100):
+                print(ev)
+            return 0
+        if cmd in ("-kill-task", "-fail-task"):
+            ok = client.call("kill_task", rest[0], cmd == "-fail-task")
+            verb = "Failed" if cmd == "-fail-task" else "Killed"
+            print(f"{verb} task attempt {rest[0]}" if ok else
+                  f"{rest[0]} not running; nothing to do")
+            return 0 if ok else 1
+        if cmd == "-list-attempt-ids":
+            if len(rest) < 3:
+                print(usage, file=sys.stderr)
+                return 255
+            for aid in client.call("get_attempt_ids", *rest[:3]):
+                print(aid)
+            return 0
+        if cmd == "-set-priority":
+            if len(rest) < 2:
+                print("Usage: python -m tpumr_torch.cli job -set-priority "
+                      "ID VERY_HIGH|HIGH|NORMAL|LOW|VERY_LOW",
+                      file=sys.stderr)
+                return 255
+            p = client.call("set_job_priority", rest[0], rest[1])
+            print(f"Changed job priority of {rest[0]} to {p}")
+            return 0
     except RpcError as e:
         print(f"job {cmd}: {e}", file=sys.stderr)
         return 1
@@ -244,6 +288,56 @@ def cmd_job(conf, argv: "list[str]") -> int:
         client.close()
     print(f"job: unknown option {cmd}", file=sys.stderr)
     return 255
+
+
+def _job_history(conf, argv: "list[str]") -> int:
+    """One job's history file summed up: its submission, end, backends,
+    event counts and failed attempts."""
+    if not argv:
+        print("Usage: python -m tpumr_torch.cli job -history JOB_ID "
+              "[HISTORY_DIR]", file=sys.stderr)
+        return 255
+    job_id = argv[0]
+    hist_dir = argv[1] if len(argv) > 1 else conf.get("tpumr.history.dir")
+    if not hist_dir:
+        print("job -history: pass HISTORY_DIR or set tpumr.history.dir",
+              file=sys.stderr)
+        return 255
+    path = os.path.join(hist_dir, f"{job_id}.jsonl")
+    if not os.path.exists(path):
+        known = [f[:-6] for f in sorted(os.listdir(hist_dir))
+                 if f.endswith(".jsonl")] if os.path.isdir(hist_dir) else []
+        print(f"no history for {job_id} in {hist_dir}; known: "
+              f"{', '.join(known) or '(none)'}", file=sys.stderr)
+        return 1
+    from tpumr_torch.mapred.history import JobHistory, job_summary
+    events = JobHistory.read(path)
+    s = job_summary(events)
+    print(f"Job: {s.get('job_id', job_id)}")
+    print(f"Name: {s.get('name', '')}")
+    print(f"State: {s.get('state', 'INCOMPLETE')}")
+    if s.get("wall_time") is not None:
+        print(f"Wall time: {s['wall_time']:.2f}s")
+    print(f"Maps: {s.get('num_maps', '?')}  Reduces: "
+          f"{s.get('num_reduces', '?')}")
+    print(f"TPU maps: {s.get('finished_tpu_maps', 0) or 0}  CPU maps: "
+          f"{s.get('finished_cpu_maps', 0) or 0}")
+    if s.get("acceleration_factor"):
+        print(f"Acceleration factor: {s['acceleration_factor']:.2f}")
+    if s.get("error"):
+        print(f"Error: {s['error']}")
+    kinds: "dict[str, int]" = {}
+    for ev in events:
+        kinds[ev.get("event", "?")] = kinds.get(ev.get("event", "?"), 0) + 1
+    print("Events: " + ", ".join(f"{k}={v}"
+                                 for k, v in sorted(kinds.items())))
+    for ev in events:
+        if ev.get("event") == "TASK_FAILED":
+            where = "tpu" if ev.get("run_on_tpu") else "cpu"
+            print(f"  failed: {ev.get('attempt_id', '?')} ({where} on "
+                  f"{ev.get('tracker', '?')}, "
+                  f"{ev.get('runtime', 0):.2f}s)")
+    return 0
 
 
 def cmd_pipeline(conf, argv: "list[str]") -> int:

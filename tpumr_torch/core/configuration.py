@@ -5,21 +5,29 @@ jobs and its command line use: a defaults layer, resource layers over it in
 the order they were added (dicts, ``.json`` or ``.toml`` files, nested TOML
 tables flattened to dotted keys; ``:54-90`` there), process-wide default
 resources that every new configuration starts with, explicit ``set()``
-values over all of them, the typed getters and class-valued keys. Left out:
-``${var}`` expansion, deprecations and size suffixes. The key strings are
-the JAX package's, so a job configuration written for it reads the same
-here.
+values over all of them, the typed getters and class-valued keys, and
+``${var}`` expansion in :meth:`Configuration.get` (``:112-133``): a string
+value's ``${name}`` is taken from another key, then from the environment,
+and one that resolves to neither is left as written, up to ``_MAX_SUBST``
+rounds; the typed getters read through ``get`` and so see the expanded
+value. Left out: deprecations and size suffixes. The key strings are the
+JAX package's, so a job configuration written for it reads the same here.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 from typing import Any, Mapping
 
 from tpumr_torch.utils.reflection import class_name, resolve_class
 
 _TRUE = {"true", "yes", "on", "1"}
 _FALSE = {"false", "no", "off", "0"}
+_VAR_PAT = re.compile(r"\$\{([^}$\s]+)\}")
+#: rounds of expansion before a value is returned as it stands
+_MAX_SUBST = 20
 
 
 class Configuration:
@@ -78,13 +86,37 @@ class Configuration:
             return flat
         return json.loads(data.decode("utf-8"))
 
-    def get(self, key: str, default: Any = None) -> Any:
+    def _raw(self, key: str) -> Any:
         if key in self._values:
             return self._values[key]
         for res in reversed(self._resources):
             if key in res:
                 return res[key]
-        return self._defaults.get(key, default)
+        if key in self._defaults:
+            return self._defaults[key]
+        raise KeyError(key)
+
+    def get(self, key: str, default: Any = None) -> Any:
+        try:
+            val = self._raw(key)
+        except KeyError:
+            return default
+        return self._substitute(val) if isinstance(val, str) else val
+
+    def _substitute(self, val: str) -> str:
+        for _ in range(_MAX_SUBST):
+            m = _VAR_PAT.search(val)
+            if m is None:
+                return val
+            name = m.group(1)
+            try:
+                rep = self._raw(name)
+            except KeyError:
+                rep = os.environ.get(name)
+            if rep is None:
+                return val   # unresolvable: left as written
+            val = val[:m.start()] + str(rep) + val[m.end():]
+        return val
 
     def set(self, key: str, value: Any) -> None:
         self._values[key] = value

@@ -12,8 +12,14 @@ A device-shuffled job (``JobConf.set_device_shuffle``) is planned at
 submission (``device_shuffle.prepare_device_shuffle_job``, ``:142-143``):
 one gang reduce task, the reduces asked for kept as its output ranges; a
 custom key comparator, a grouping comparator or missing widths are refused
-there. Left out: credentials and tokens, the submitting user's name, and
-following a job recovered under a new id.
+there.
+
+A master restart (``:23-40, 88-95``): the client's calls retry a failed
+connection ``tpumr.jobclient.rpc.retries`` times (default 3) with a
+doubling backoff, and every status poll rebinds :class:`RunningJob` to the
+id the status names, so that a client polling a job that a restarted
+master recovered under a new id follows it. Left out: credentials and
+tokens, and the submitting user's name.
 """
 
 from __future__ import annotations
@@ -33,14 +39,25 @@ TERMINAL = ("SUCCEEDED", "FAILED", "KILLED")
 
 
 class RunningJob:
-    """A job submitted to a master: its status, counters and reports."""
+    """A job submitted to a master: its status, counters and reports.
+    ``job_id`` follows the job across a master restart."""
 
     def __init__(self, client: RpcClient, job_id: str) -> None:
         self._client = client
         self.job_id = job_id
 
     def status(self) -> dict:
-        return self._client.call("get_job_status", self.job_id)
+        st = self._client.call("get_job_status", self.job_id)
+        new_id = st.get("job_id")
+        if new_id and new_id != self.job_id:
+            self.job_id = new_id   # recovered under a new id
+        return st
+
+    def is_complete(self) -> bool:
+        return self.status()["state"] in TERMINAL
+
+    def is_successful(self) -> bool:
+        return self.status()["state"] == "SUCCEEDED"
 
     def counters(self) -> Counters:
         return Counters.from_dict(self._client.call("get_counters",

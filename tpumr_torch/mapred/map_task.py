@@ -36,7 +36,12 @@ A map polls its attempt's kill flag (``Reporter.raise_if_aborted``) every
 and the fault seam ``task.hang`` / ``task.hang.m<index>`` of ``utils/fi``
 makes it stop reporting and poll only that flag (:func:`_hang_silently`,
 ``:234-236, 340-355``), as a hung attempt does until the node runner's
-reaper fails it. The attempt's reporter rides on ``task.reporter`` for a
+reaper fails it. The seam ``task.slow`` / ``task.slow.m<index>`` makes a
+straggler instead (:func:`_run_slowly`, ``:237-239, 322-341``): for
+``tpumr.fi.task.slow.ms`` (default 2,000) before its work the map reports
+progress creeping toward 0.45, which feeds the master's remaining-work
+estimate, and polls the kill flag, so that a speculative twin's win ends
+it at once. The attempt's reporter rides on ``task.reporter`` for a
 kernel mapper that waits and must stay killable (``examples/sleep``).
 """
 
@@ -220,6 +225,9 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
     if fires("task.hang", conf) or fires(f"task.hang.m{task.partition}",
                                          conf):
         _hang_silently(reporter)
+    if fires("task.slow", conf) or fires(f"task.slow.m{task.partition}",
+                                         conf):
+        _run_slowly(conf, reporter)
     t0 = time.monotonic()
     if task.run_on_tpu:
         runner_cls = conf.get_tpu_map_runner_class()
@@ -283,6 +291,21 @@ def run_map_task(conf: Any, task: Task, local_dir: str,
     reporter.incr_counter(BackendCounter.GROUP, backend_ms,
                           int((time.monotonic() - t0) * 1000))
     return out
+
+
+def _run_slowly(conf: Any, reporter: Reporter) -> None:
+    """The ``task.slow`` fault: a straggler, alive and reporting, whose
+    progress creeps toward (never past) 0.45 for ``tpumr.fi.task.slow.ms``
+    before the real work; the kill flag is polled every 50 ms."""
+    total_s = max(0.0, conf.get_int("tpumr.fi.task.slow.ms", 2000) / 1000.0)
+    t0 = time.monotonic()
+    while True:
+        elapsed = time.monotonic() - t0
+        if elapsed >= total_s:
+            return
+        reporter.progress(min(0.45, 0.45 * elapsed / total_s))
+        reporter.raise_if_aborted()
+        time.sleep(min(0.05, total_s - elapsed))
 
 
 def _hang_silently(reporter: Reporter) -> None:

@@ -23,6 +23,13 @@ there) runs:
   them;
 - at most one reduce per heartbeat.
 
+A job with no map (or reduce) pending still takes part in each pass while
+its speculation is on (``mapred.speculative.execution``, and
+``mapred.reduce.speculative.execution`` for the reduce pass;
+``:340-385``): its ``obtain`` call then offers a twin of a lagging task
+(``JobInProgress._obtain_speculative_map``), or nothing. The reference's
+brownout hold is left out with the brownout.
+
 A node runner that reports ``available_memory_mb`` only receives tasks
 whose declared memory fits. Jobs are offered slots in priority, then
 submission order, a pipeline's stage jobs at the pipeline's submission
@@ -135,7 +142,8 @@ class HybridQueueScheduler(TaskScheduler):
                         and job.pending_map_count()
                         < accel * max_tpu * n_trackers):
                     b = 0   # starve this job's CPU share
-                if b == 0:   # only asked with a CPU slot free, map pending
+                if b == 0 and job.pending_map_count():
+                    # asked with a CPU slot free and a map pending
                     job.cpu_starved_heartbeats += 1
             cpu_budget[jid] = b
             return b
@@ -147,8 +155,10 @@ class HybridQueueScheduler(TaskScheduler):
                 break
             task = None
             for job in jobs:
-                if not job.tpu_eligible() or job.pending_map_count() == 0:
+                if not job.tpu_eligible():
                     continue
+                if job.pending_map_count() == 0 and not job.speculative:
+                    continue   # drained, and no twins to offer
                 if not fits(job.map_memory_mb()):
                     continue
                 task = job.obtain_new_map_task(
@@ -165,7 +175,9 @@ class HybridQueueScheduler(TaskScheduler):
         for _ in range(free_cpu):
             task = None
             for job in jobs:
-                if job.pending_map_count() == 0 or budget_of(job) <= 0:
+                if job.pending_map_count() == 0 and not job.speculative:
+                    continue
+                if budget_of(job) <= 0:
                     continue
                 if not fits(job.map_memory_mb()):
                     continue
@@ -181,7 +193,8 @@ class HybridQueueScheduler(TaskScheduler):
 
         if free_red > 0:   # at most one reduce a heartbeat
             for job in jobs:
-                if job.pending_reduce_count() == 0:
+                if job.pending_reduce_count() == 0 \
+                        and not job.speculative_reduces:
                     continue
                 if not fits(job.reduce_memory_mb()):
                     continue

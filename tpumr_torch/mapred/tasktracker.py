@@ -16,9 +16,20 @@ Counterpart of ``NodeRunner`` in ``tpumr/mapred/tasktracker.py``:
   contact, the master's response id echoed back; terminal statuses and the
   fetch-failure reports sent are dropped once a response arrived
   (``:1120-1122``), and the response's actions applied
-  (:meth:`NodeRunner._apply_action`: launch, kill, job cleanup); a beat
-  that fails is retried at the next interval, its error kept on
+  (:meth:`NodeRunner._apply_action`: launch, kill, job cleanup, ``reinit``
+  and ``recover_job``); a beat that fails is retried, its error kept on
   :attr:`NodeRunner.heartbeat_error` and logged once per distinct error;
+- the lost master (``:453-470, 981-1001, 1090``): a beat that fails in
+  transport (the master died, restarts or is cut off) sets
+  :attr:`NodeRunner.master_unreachable`; the attempts go on running,
+  nothing is killed or reset, and the beats back off, doubling up to
+  ``tpumr.heartbeat.lostmaster.backoff.max.ms`` (default 15,000) with
+  jitter; the first beat that lands clears it, and a restarted master
+  adopts the runner's work from that beat. A ``recover_job`` action
+  (``:1266-1275``) names a job the restarted master resubmitted: the
+  outputs served under the old id move to the new one, later ones are
+  registered under it, and a fetch under either id finds them
+  (:meth:`NodeRunner._map_output_entry`, ``:2113-2139``);
 - a thread per attempt (``_launch``, ``_run_task_inner``, ``:1572-1697``):
   a map runs the port's ``map_task.run_map_task``, whose ``task.run_on_tpu``
   picks ``GpuMapRunner`` (the card ``cuda:tpu_device_id``) or the CPU
@@ -114,16 +125,17 @@ all of the port's RPC. A job's file cache (a pipes job's executables,
 Left out (``ROADMAP.md``): the serving and purging of userlogs (a child's
 log is kept under ``userlogs/<job>/<attempt>/child.log``, no more),
 profiles, the batched map-output serving (``serve_batch``), the
-restart rebinding of ``_map_output_entry``, the locator's pooled
-connections (``RpcClientPool``: here each fetching thread keeps one
-``RpcClient`` per address, and the locator closes them all), the
-lost-master backoff, the heartbeat delta encoding and the HTTP page.
+locator's pooled connections (``RpcClientPool``: here each fetching thread
+keeps one ``RpcClient`` per address, and the locator closes them all), the
+heartbeat delta encoding (so the ``resend_full`` action) and the HTTP
+page.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import random
 import shutil
 import tempfile
 import threading
@@ -414,6 +426,14 @@ class NodeRunner:
         self._initial_contact = True
         #: the last failed beat's error ("" after a beat that went through)
         self.heartbeat_error = ""
+        #: set while the master cannot be reached in transport: the
+        #: attempts go on, the beats back off; cleared by a beat that lands
+        self.master_unreachable = False
+        self._master_failures = 0
+        self._lost_master_backoff_max_s = conf.get_int(
+            "tpumr.heartbeat.lostmaster.backoff.max.ms", 15_000) / 1000.0
+        #: old job id -> the id a restarted master resubmitted it as
+        self._job_rebinds: "dict[str, str]" = {}
         self._stop = threading.Event()
         self._cpu_sem = threading.Semaphore(max(1, self.max_cpu_map_slots))
         self._tpu_sem = threading.Semaphore(max(1, self.max_tpu_map_slots))
@@ -575,6 +595,7 @@ class NodeRunner:
 
     def _heartbeat_loop(self) -> None:
         while not self._stop.is_set():
+            wait_s = self.heartbeat_s
             try:
                 self._heartbeat_once()
                 self.heartbeat_error = ""
@@ -583,7 +604,18 @@ class NodeRunner:
                 if err != self.heartbeat_error:
                     _log.warning("%s: heartbeat failed: %s", self.name, err)
                 self.heartbeat_error = err
-            self._stop.wait(self.heartbeat_s)
+                if isinstance(e, (ConnectionError, OSError, EOFError)):
+                    # the master is gone in transport, not this runner's
+                    # fault: kill nothing, back off with jitter so that a
+                    # restarting master is not met by every runner at once
+                    self._master_failures += 1
+                    self.master_unreachable = True
+                    backoff = min(self._lost_master_backoff_max_s,
+                                  self.heartbeat_s
+                                  * (2 ** min(self._master_failures, 6)))
+                    wait_s = max(self.heartbeat_s,
+                                 backoff * random.uniform(0.5, 1.0))
+            self._stop.wait(wait_s)
 
     def _heartbeat_once(self) -> None:
         full = self._status_dict()
@@ -592,6 +624,9 @@ class NodeRunner:
                or full["count_reduce_tasks"] < self.max_reduce_slots)
         resp = self.master.call("heartbeat", full, self._initial_contact,
                                 ask, self._response_id)
+        # the master that answered has adopted this beat's status
+        self.master_unreachable = False
+        self._master_failures = 0
         self._initial_contact = False
         self._response_id = resp["response_id"]
         with self.lock:
@@ -649,10 +684,30 @@ class NodeRunner:
             with self.lock:
                 if action["attempt_id"] in self.running:
                     self._kill_requested.add(action["attempt_id"])
+        elif kind == "reinit":
+            # the master reset this runner: its attempts are dropped and
+            # it registers again
+            with self.lock:
+                self.running.clear()
+                self.running_tasks.clear()
+                self._initial_contact = True
+                self._response_id = 0
+        elif kind == "recover_job":
+            # a restarted master resubmitted a job under a new id: its
+            # outputs here move to the new id, for reduces launched under
+            # it (an adopted reduce of the old id still finds them)
+            old, new = str(action["old"]), str(action["new"])
+            with self.lock:
+                self._job_rebinds[old] = new
+                for key in [k for k in self.map_outputs if k[0] == old]:
+                    self.map_outputs[(new, key[1])] = \
+                        self.map_outputs.pop(key)
         elif kind == "cleanup_job":
             job_id = action["job_id"]
             with self.lock:
-                for key in [k for k in self.map_outputs if k[0] == job_id]:
+                new = self._job_rebinds.pop(job_id, None)
+                for key in [k for k in self.map_outputs
+                            if k[0] in (job_id, new)]:
                     del self.map_outputs[key]
                 jc = self.job_confs.pop(job_id, None)
             if jc is not None:
@@ -769,8 +824,8 @@ class NodeRunner:
                     index = dict(index, attempt=aid,
                                  attempt_no=task.attempt_id.attempt)
                     with self.lock:
-                        self.map_outputs[(job_id, task.partition)] = \
-                            (path, index)
+                        self.map_outputs[(self._job_rebinds.get(
+                            job_id, job_id), task.partition)] = (path, index)
             else:
                 locator = self._map_locator(job_id, aid, reporter)
                 try:
@@ -885,8 +940,8 @@ class NodeRunner:
         index = dict(handoff["index"], attempt=str(task.attempt_id),
                      attempt_no=task.attempt_id.attempt)
         with self.lock:
-            self.map_outputs[(serve_key(job_id), task.partition)] = \
-                (handoff["path"], index)
+            key = serve_key(self._job_rebinds.get(job_id, job_id))
+            self.map_outputs[(key, task.partition)] = (handoff["path"], index)
 
     def _handoff_source(self, upstream_job: str) -> HandoffSource:
         """The stream source of one upstream job, shared by every map of
@@ -1151,7 +1206,8 @@ class NodeRunner:
                                    + os.sep):
                 raise PermissionError(f"{out_path} is not under the "
                                       "runner's local directory")
-            self.map_outputs[(job_id, int(partition))] = (
+            self.map_outputs[(self._job_rebinds.get(job_id, job_id),
+                              int(partition))] = (
                 real, dict(index, attempt=attempt_id,
                            attempt_no=attempt.attempt))
 
@@ -1210,12 +1266,32 @@ class NodeRunner:
         if attempt_no is not None:
             maybe_fail(f"shuffle.serve.a{attempt_no}", conf)
 
+    def _map_output_entry(self, job_id: str,
+                          map_index: int) -> "tuple | None":
+        """A served output by the job id asked for, or through a restart's
+        rebinding either way: outputs move to the new id, while a reduce
+        adopted across the restart asks with the old one. A handoff key
+        (``handoff:<job>``) follows the rebinding of its job."""
+        rebind = job_id
+        if job_id.startswith(SERVE_PREFIX):
+            inner = self._job_rebinds.get(job_id[len(SERVE_PREFIX):])
+            if inner is not None:
+                rebind = SERVE_PREFIX + inner
+        with self.lock:
+            ent = self.map_outputs.get((job_id, map_index))
+            if ent is None and rebind != job_id:
+                ent = self.map_outputs.get((rebind, map_index))
+            if ent is None:
+                new = self._job_rebinds.get(job_id)
+                if new is not None:
+                    ent = self.map_outputs.get((new, map_index))
+        return ent
+
     def _entry(self, job_id: str, map_index: int, dense: bool
                ) -> "tuple[str, dict]":
         """(path, index) of a served output of the kind asked for, past
         the serving seams."""
-        with self.lock:
-            ent = self.map_outputs.get((job_id, int(map_index)))
+        ent = self._map_output_entry(job_id, int(map_index))
         if ent is None:
             raise KeyError(f"no map output for {job_id} map {map_index}")
         path, index = ent

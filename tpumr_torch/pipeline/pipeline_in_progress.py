@@ -23,9 +23,20 @@ predicate is read on the round job's counters: the node settles when it
 holds or ``max_rounds`` rounds ran, else the next round is submitted with
 its ``{round}``-expanded conf.
 
-Left out: restart recovery (``from_recovery``, ``apply_retired``,
-``_retired_state``; the port's master keeps no job history) and the
-pipeline's trace root.
+Restart recovery (``:228-247, 333-372``): the master journals
+``PIPELINE_SUBMITTED`` (the whole graph) and one
+``PIPELINE_STAGE_SUBMITTED`` per stage job in the pipeline's own history
+file, and :meth:`PipelineInProgress.from_recovery` replays them, each stage
+job id followed through the master's recovery alias (a stage job the
+restart resubmitted is watched under its new id). A stage job that only
+history remembers (it ended before the restart) is settled from its log,
+never run again: :meth:`plan_locked` returns it as unresolved, the master
+reads its outcome outside the lock (:meth:`_retired_state`) and feeds it
+back through :meth:`apply_retired`. A loop whose finished round is known
+only from history goes on to its next round, since that round's counters
+died with the old master. Stages never submitted are submitted as usual.
+
+Left out: the pipeline's trace root.
 """
 
 from __future__ import annotations
@@ -82,9 +93,11 @@ class _Node:
 
 
 class PipelineInProgress:
-    def __init__(self, pipeline_id: str, graph: JobGraph) -> None:
+    def __init__(self, pipeline_id: str, graph: JobGraph,
+                 user: str = "") -> None:
         self.pipeline_id = pipeline_id
         self.graph = graph
+        self.user = user
         self.state = PipelineState.RUNNING
         self.error = ""
         #: also the scheduler's anchor: stage jobs take it as their FIFO
@@ -156,19 +169,25 @@ class PipelineInProgress:
 
     # --------------------------------------------------------- advance
 
-    def plan_locked(self, master: Any) -> "list[tuple[str, int]]":
+    def plan_locked(self, master: Any
+                    ) -> "tuple[list[tuple[str, int]], list[tuple[str, str]]]":
         """Fold the running stages' job outcomes into their nodes and
-        return the (node, round) submissions now due, each node marked
-        ``SUBMITTING``. The caller holds the master's pipeline lock; this
-        does no I/O."""
+        return ``(plans, unresolved)``: the (node, round) submissions now
+        due, each node marked ``SUBMITTING``, and the (node, job id) pairs
+        whose job only history remembers, for the caller to resolve
+        outside the lock and feed back to :meth:`apply_retired`. The
+        caller holds the master's pipeline lock; this does no I/O."""
         if self.state in PipelineState.TERMINAL:
-            return []
+            return [], []
         plans: "list[tuple[str, int]]" = []
+        unresolved: "list[tuple[str, str]]" = []
         for nid in self.order:
             n = self.nodes[nid]
             if n.state == NodeState.RUNNING:
                 jip = master.jobs.get(n.job_id)
-                if jip is not None:
+                if jip is None:
+                    unresolved.append((nid, n.job_id))
+                else:
                     self._fold_job_outcome(nid, n, jip, plans)
             if n.state == NodeState.PENDING \
                     and (self._upstream_ready(master, nid)
@@ -179,7 +198,7 @@ class PipelineInProgress:
                 n.state == NodeState.SUCCEEDED for n in self.nodes.values()):
             self.state = PipelineState.SUCCEEDED
             self.finish_time = time.time()
-        return plans
+        return plans, unresolved
 
     def _fold_job_outcome(self, nid: str, n: _Node, jip: Any,
                           plans: "list[tuple[str, int]]") -> None:
@@ -199,6 +218,34 @@ class PipelineInProgress:
             n.state = NodeState.FAILED
             n.error = jip.error or f"stage job {n.job_id} {st}"
             self.fail(f"stage {nid!r} {st.lower()}: {n.error}")
+
+    def apply_retired(self, nid: str, state: str) -> None:
+        """One stage outcome read from history (the caller holds the
+        pipeline lock again). A loop cannot read the finished round's
+        counters, so it goes on toward ``max_rounds``."""
+        n = self.nodes.get(nid)
+        if n is None or n.state != NodeState.RUNNING:
+            return
+        if state == "SUCCEEDED":
+            if n.is_loop and n.round + 1 < int(
+                    n.spec["loop"]["max_rounds"]):
+                n.round += 1
+                n.state = NodeState.PENDING
+            else:
+                n.state = NodeState.SUCCEEDED
+        elif state in ("FAILED", "KILLED"):
+            n.state = NodeState.FAILED
+            n.error = f"stage job {n.job_id} {state} (history)"
+            self.fail(f"stage {nid!r} {state.lower()}: {n.error}")
+
+    @staticmethod
+    def _retired_state(master: Any, job_id: str) -> str:
+        """The end of a stage job that only history remembers, or
+        ``RUNNING`` while it holds none."""
+        if not job_id:
+            return "RUNNING"
+        st = master.history.retired_job_status(job_id)
+        return str(st["state"]) if st and st.get("state") else "RUNNING"
 
     def _loop_settled(self, n: _Node, jip: Any) -> bool:
         """The loop is done: the predicate holds on the finished round's
@@ -274,3 +321,33 @@ class PipelineInProgress:
             if n.state in (NodeState.PENDING, NodeState.SUBMITTING):
                 n.state = NodeState.SKIPPED
         return victims
+
+    # -------------------------------------------------------- recovery
+
+    @staticmethod
+    def from_recovery(pipeline_id: str, graph_dict: dict,
+                      stage_events: "list[dict]", master: Any,
+                      user: str = "") -> "PipelineInProgress":
+        """Rebuild an interrupted pipeline from its journal: each stage
+        submission replayed through the master's recovery alias, stages
+        that history shows ended settled without running again, the rest
+        left to the usual advance."""
+        pip = PipelineInProgress(pipeline_id, JobGraph.from_dict(graph_dict),
+                                 user=user)
+        for ev in stage_events:
+            n = pip.nodes.get(str(ev.get("node", "")))
+            if n is None:
+                continue
+            job_id = str(ev.get("stage_job_id", ""))
+            job_id = master.get_recovered_jobs().get(job_id, job_id)
+            n.jobs.append(job_id)
+            n.job_id = job_id
+            n.round = int(ev.get("round", 0) or 0)
+            n.output_dir = str(ev.get("output_dir", "") or "")
+            n.num_reduces = int(ev.get("num_reduces", 0) or 0)
+            n.state = NodeState.RUNNING
+        for nid, n in pip.nodes.items():
+            if n.state == NodeState.RUNNING \
+                    and master.jobs.get(n.job_id) is None:
+                pip.apply_retired(nid, pip._retired_state(master, n.job_id))
+        return pip

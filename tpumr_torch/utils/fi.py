@@ -39,8 +39,11 @@ generation or one card can be targeted:
                                  (``map_task._hang_silently``), until the
                                  node runner's reaper fails it after
                                  ``mapred.task.timeout``
-
-``task.slow`` (a straggler, for speculation) is not ported.
+  task.slow / task.slow.m<idx>   a behaviour: the map is a straggler for
+                                 ``tpumr.fi.task.slow.ms``, reporting
+                                 creeping progress and polling the kill
+                                 flag (``map_task._run_slowly``), the
+                                 target of speculation
 """
 
 from __future__ import annotations
